@@ -1,0 +1,168 @@
+"""Shared workflow machinery: flag contract, logging, method dispatch.
+
+Port of ``cctpu/workflows/common.py`` for the methods the port has
+(``hf`` and ``b3lyp``, closed shell, density fitted). The flag contract,
+the dual short/log reports and their naming scheme
+``{smiles}_{script}_{method}_{basis}_{short|log}_report.txt`` are the
+reference's.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import os
+import re
+import sys
+import time
+from typing import Optional
+
+from cctpu_torch.core.molecule import Molecule
+from cctpu_torch.io.embed3d import smiles_to_molecule
+
+
+class MultiWriter:
+    """Fan stdout-style writes to several streams."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text):
+        for s in self.streams:
+            s.write(text)
+            s.flush()
+
+    def flush(self):
+        for s in self.streams:
+            s.flush()
+
+    def print(self, *args, **kw):
+        print(*args, file=self, **kw)
+
+
+def sanitize(smiles: str) -> str:
+    return re.sub(r"[^A-Za-z0-9]", "_", smiles)[:40]
+
+
+def add_common_args(p: argparse.ArgumentParser, default_method="b3lyp",
+                    default_basis="6-31g*"):
+    p.add_argument("--smiles", required=True, help="input molecule SMILES")
+    p.add_argument("--method", default=default_method,
+                   help="hf | b3lyp (the functionals ported so far)")
+    p.add_argument("--basis", default=default_basis)
+    p.add_argument("--charge", type=int, default=None,
+                   help="default: formal charge from SMILES")
+    p.add_argument("--spin", type=int, default=0, help="2S = Na - Nb")
+    p.add_argument("--use-gpu", action="store_true",
+                   help="accepted for reference CLI compatibility (compute "
+                        "runs on the CUDA device when one is present)")
+    p.add_argument("--density-fit", action="store_true", default=None,
+                   help="density fitting (the only J/K the port has; "
+                        "default: auto by size, in-core below nao 160)")
+    p.add_argument("--output-dir", default=".")
+    p.add_argument("--grid-level", type=int, default=3)
+    return p
+
+
+def open_reports(args, script: str):
+    configure_run(args)
+    os.makedirs(args.output_dir, exist_ok=True)
+    tag = f"{sanitize(args.smiles)}_{script}_{args.method}_" \
+          f"{args.basis.replace('*', 's').replace('+', 'p')}"
+    short = open(os.path.join(args.output_dir, f"{tag}_short_report.txt"),
+                 "w")
+    log = open(os.path.join(args.output_dir, f"{tag}_log_report.txt"), "w")
+    out = MultiWriter(sys.stdout, short, log)
+    # config provenance sidecar: every run records what produced it
+    cfg = {k: v for k, v in vars(args).items()
+           if isinstance(v, (str, int, float, bool, type(None), list))}
+    cfg["_script"] = script
+    cfg["_cctpu_torch_version"] = __import__("cctpu_torch").__version__
+    with open(os.path.join(args.output_dir, f"{tag}_config.json"), "w") as f:
+        json.dump(cfg, f, indent=1)
+    return out, short, log, tag
+
+
+def make_scf(mol: Molecule, method: str, density_fit: Optional[bool] = None,
+             grid_level: int = 3, **opts):
+    """Method string -> SCF object."""
+    m = method.lower()
+    if density_fit is None:
+        density_fit = mol.nao > 160
+    if not density_fit:
+        raise NotImplementedError(
+            f"nao {mol.nao} <= 160 selects in-core J/K, which is not ported "
+            "yet (ROADMAP.md queue 1 item 9); pass --density-fit")
+    if mol.spin != 0:
+        raise NotImplementedError("open-shell UHF/UKS is not ported yet "
+                                  "(ROADMAP.md queue 1)")
+    if m == "mp2":
+        raise NotImplementedError("MP2 is not ported yet (ROADMAP.md "
+                                  "queue 1 item 15)")
+    if m == "hf":
+        from cctpu_torch.scf.hf import RHF
+        mf = RHF(mol, density_fit=density_fit, **opts)
+    else:
+        from cctpu_torch.dft.rks import RKS
+        mf = RKS(mol, xc=m, density_fit=density_fit, grid_level=grid_level,
+                 **opts)
+    return mf
+
+
+# Global run context set once per workflow invocation (open_reports)
+PHASES = None      # utils.profiling.PhaseTimer | None
+
+
+def configure_run(args):
+    """Install the phase timer for this workflow run."""
+    global PHASES
+    from cctpu_torch.utils.profiling import PhaseTimer
+    PHASES = PhaseTimer()
+    return PHASES
+
+
+def report_phases(log=print):
+    if PHASES is not None and PHASES.phases:
+        log("\nPhase timings:")
+        PHASES.report(log)
+
+
+def run_scf(mol, method, density_fit=None, dm0=None, log=None, **opts):
+    """SCF with the fallback ladder: preferred settings -> damped/level-
+    shifted retry from the unconverged density."""
+    timer = (PHASES.phase(f"scf:{method}") if PHASES is not None
+             else contextlib.nullcontext())
+    with timer:
+        mf = make_scf(mol, method, density_fit, **opts)
+        e = mf.kernel(dm0=dm0)
+        if not mf.converged:
+            if log:
+                log("SCF not converged; retrying with level shift + damping")
+            mf2 = make_scf(mol, method, density_fit,
+                              level_shift=0.3, damp=0.3, max_cycle=200,
+                              **opts)
+            e2 = mf2.kernel(dm0=mf.make_rdm1())
+            if mf2.converged:
+                mf, e = mf2, e2
+    return mf, e
+
+
+def build_molecule(args, basis=None, spin=None, log=None) -> Molecule:
+    return smiles_to_molecule(args.smiles, charge=args.charge,
+                              spin=args.spin if spin is None else spin,
+                              basis=basis or args.basis)
+
+
+def homo_lumo(mf):
+    e = mf.mo_energy.cpu().numpy()
+    nocc = mf.mol.nelectron // 2
+    return float(e[nocc - 1]), float(e[nocc])
+
+
+class Timer:
+    def __init__(self):
+        self.t0 = time.time()
+
+    def lap(self):
+        return time.time() - self.t0

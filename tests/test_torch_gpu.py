@@ -1,0 +1,84 @@
+"""Tests of the port that need the card: the CUDA kernel against its plain
+version, and the CUDA dispatch (launch or raise). They skip without a CUDA
+device. This file imports neither JAX nor cctpu, so it also runs on a
+machine without them:
+
+    python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from cctpu_torch.core.molecule import Molecule
+from cctpu_torch.ints.df import DFJK
+from cctpu_torch.ops import df_jk
+
+pytestmark = pytest.mark.gpu
+
+WATER = "O 0 0 0.1173; H 0 0.7572 -0.4692; H 0 -0.7572 -0.4692"
+# cctpu's tests/test_pallas_ops.py shapes (naux, nao, nocc), unaligned,
+# and a C32H66-sized row (nao 580 -> 600, nocc 129) with few aux rows: the
+# path where neither B[p] nor W_p fits in shared memory
+SHAPES = [(96, 32, 8), (37, 16, 3), (83, 24, 5), (150, 600, 129)]
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+def _inputs(naux, nao, nocc, seed, dtype, dev):
+    rng = np.random.default_rng(seed)
+    B = rng.standard_normal((naux, nao, nao))
+    C = rng.standard_normal((nao, nocc))
+    return tuple(torch.as_tensor(x, dtype=dtype, device=dev)
+                 for x in (B, 2 * C @ C.T, C))
+
+
+def _rel(x, ref):
+    return float((x - ref).abs().max() / ref.abs().max())
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+def test_kernel_matches_plain_on_card(dev, shape, dtype, tol):
+    B, D, C = _inputs(*shape, shape[0], dtype, dev)
+    before = df_jk.LAUNCHES
+    J, K = df_jk.df_jk_fused(B, D, C)
+    J2, K2 = df_jk.df_jk_fused(B, D, C)
+    Jr, Kr = df_jk.df_jk_reference(B, D, C)
+    assert df_jk.LAUNCHES == before + 2
+    assert _rel(J, Jr) < tol and _rel(K, Kr) < tol
+    assert torch.equal(J, J2) and torch.equal(K, K2)     # deterministic
+
+
+def test_kernel_rejects_what_it_does_not_take(dev):
+    B, D, C = _inputs(8, 6, 2, 0, torch.float64, dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        df_jk.df_jk_fused(B, D, C.T.contiguous().T)
+    with pytest.raises(ValueError, match="dtypes"):
+        df_jk.df_jk_fused(B, D.float(), C)
+    with pytest.raises(ValueError, match="CUDA"):
+        df_jk.df_jk_fused(B, D.cpu(), C)
+
+
+def test_dfjk_on_card_launches_or_raises(dev):
+    mol = Molecule.from_atoms(WATER, basis="sto-3g")
+    jk = DFJK(mol, torch.as_tensor(mol.coords, dtype=torch.float64,
+                                   device=dev))
+    C = torch.as_tensor(np.random.default_rng(1).standard_normal((7, 5)),
+                        device=dev)
+    D = C @ C.T
+    before = df_jk.LAUNCHES
+    J, K = jk(D, cocc=C)
+    assert df_jk.LAUNCHES == before + 1
+    Jr, Kr = df_jk.df_jk_reference(jk.B, D, C)
+    assert _rel(J, Jr) < 1e-12 and _rel(K, Kr) < 1e-12
+    for kw in ({"with_k": False, "cocc": C}, {"cocc": None},
+               {"cocc": (C, C)}):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            jk(D, **kw)
