@@ -1,6 +1,6 @@
-"""Kohn–Sham DFT: closed-shell RKS.
+"""Kohn–Sham DFT: closed-shell RKS and open-shell UKS.
 
-Port of ``cctpu/dft/rks.py`` (RKS part):
+Port of ``cctpu/dft/rks.py``:
  - the grid is padded into fixed-size chunks; AO values and gradients are
    evaluated once per geometry into an f64 cache [nchunk, 4, chunk, nao]
    when it fits the device, else recomputed chunk by chunk;
@@ -8,7 +8,8 @@ Port of ``cctpu/dft/rks.py`` (RKS part):
  - the XC Fock matrix is ``torch.autograd.grad`` of E_xc with respect to
    the density matrix, taken chunk by chunk (the sum of the chunk
    gradients is the gradient of the sum) and made symmetric;
- - the hybrid's exact exchange comes from the same J/K builder as HF.
+ - the hybrid's exact exchange comes from the same J/K builder as HF;
+ - UKS keeps both spin densities stacked as [2, nao, nao].
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import torch
 from cctpu_torch.dft.grids import Grids
 from cctpu_torch.dft.numint import eval_ao
 from cctpu_torch.dft.xc import get_functional
-from cctpu_torch.scf.hf import RHF
+from cctpu_torch.scf.hf import RHF, UHF
 
 # padding points sit this far away (bohr): every AO is exactly 0 there
 _PAD_AT = 1e6
@@ -45,11 +46,18 @@ def _ao_cache_budget(device) -> float:
 
 
 class _XCMixin:
-    """Shared XC machinery. Set self.xc before kernel()."""
+    """Shared XC machinery of RKS and UKS: the functional ``xc`` and its
+    grid (``grid_level``) are set up at construction."""
 
     xc: str = "b3lyp"
     grid_level: int = 3
     grid_chunk: int = 8192
+
+    def __init__(self, mol, xc: str = "b3lyp", **opts):
+        super().__init__(mol, **opts)
+        self.xc = xc
+        self.grid_level = opts.get("grid_level", 3)
+        self._setup_xc()
 
     def _setup_xc(self):
         self.func = get_functional(self.xc)
@@ -89,20 +97,35 @@ class _XCMixin:
 
     @staticmethod
     def _chunk_exc_from_ao(func, dm, ao, w):
-        """Integrated XC energy of one grid chunk (restricted density)
-        given AO values ao [4, chunk, nao] (value + 3 gradients)."""
+        """Integrated XC energy of one grid chunk given AO values
+        ao [4, chunk, nao] (value + 3 gradients); a [nao, nao] dm is the
+        restricted total density, a [2, nao, nao] one the two spins."""
         a0 = ao[0]
-        da = (0.5 * dm) @ a0.T                           # [nao, chunk]
-        ra = torch.einsum("pi,ip->p", a0, da)
-        ga = torch.stack([2 * torch.einsum("pi,ip->p", ao[1 + d], da)
-                          for d in range(3)], -1)
-        saa = torch.einsum("pd,pd->p", ga, ga)
-        ta = torch.zeros_like(ra)
-        e = func.exc(ra, ra, saa, saa, saa, ta, ta)
+        if dm.ndim == 2:
+            da = (0.5 * dm) @ a0.T                       # [nao, chunk]
+            ra = torch.einsum("pi,ip->p", a0, da)
+            ga = torch.stack([2 * torch.einsum("pi,ip->p", ao[1 + d], da)
+                              for d in range(3)], -1)
+            saa = torch.einsum("pd,pd->p", ga, ga)
+            ta = torch.zeros_like(ra)
+            e = func.exc(ra, ra, saa, saa, saa, ta, ta)
+            return torch.sum(w * e)
+        dab = dm @ a0.T                                  # [2, nao, chunk]
+        r = torch.einsum("pi,sip->sp", a0, dab)
+        g = torch.stack([2 * torch.einsum("pi,sip->sp", ao[1 + d], dab)
+                         for d in range(3)], -1)         # [2, chunk, 3]
+        saa = torch.einsum("pd,pd->p", g[0], g[0])
+        sab = torch.einsum("pd,pd->p", g[0], g[1])
+        sbb = torch.einsum("pd,pd->p", g[1], g[1])
+        t = torch.zeros_like(r[0])
+        e = func.exc(r[0], r[1], saa, sab, sbb, t, t)
         return torch.sum(w * e)
 
     def _exc_vxc(self, dm):
-        """(E_xc, dE_xc/dD) by autograd, one chunk at a time."""
+        """(E_xc, dE_xc/dD) by autograd, one chunk at a time; dm is
+        [nao, nao] or [2, nao, nao]. The gradient is projected onto
+        matrices symmetric in the last two axes: D is constrained
+        symmetric, and the GGA terms make the raw gradient asymmetric."""
         self._prepare_xc_f64()
         dm_leaf = dm.detach().requires_grad_(True)
         exc = torch.zeros((), dtype=dm.dtype, device=dm.device)
@@ -115,16 +138,10 @@ class _XCMixin:
                 g, = torch.autograd.grad(e, dm_leaf)
                 exc = exc + e.detach()
                 vxc = vxc + g
-        return exc, vxc
+        return exc, 0.5 * (vxc + vxc.transpose(-1, -2))
 
 
 class RKS(_XCMixin, RHF):
-    def __init__(self, mol, xc: str = "b3lyp", **opts):
-        super().__init__(mol, **opts)
-        self.xc = xc
-        self.grid_level = opts.get("grid_level", 3)
-        self._setup_xc()
-
     def get_veff(self, dm, cocc=None):
         func = self.func
         J, K = self._jk(dm, with_k=bool(func.hyb), cocc=cocc)
@@ -135,8 +152,23 @@ class RKS(_XCMixin, RHF):
             e2 = e2 - 0.25 * func.hyb * torch.einsum("ij,ij->", dm, K)
         if func.exc is not None:
             exc, vxc = self._exc_vxc(dm)
-            # project onto symmetric matrices: D is constrained symmetric,
-            # and the GGA terms make the raw gradient asymmetric
-            veff = veff + 0.5 * (vxc + vxc.T)
+            veff = veff + vxc
+            e2 = e2 + exc
+        return veff, e2
+
+
+class UKS(_XCMixin, UHF):
+    def get_veff(self, dm, cocc=None):
+        func = self.func
+        J, K = self._jk(dm, with_k=bool(func.hyb), cocc=cocc)
+        Jtot = J[0] + J[1]
+        veff = torch.stack([Jtot, Jtot])
+        e2 = 0.5 * torch.einsum("sij,ij->", dm, Jtot)
+        if func.hyb:
+            veff = veff - func.hyb * K
+            e2 = e2 - 0.5 * func.hyb * torch.einsum("sij,sij->", dm, K)
+        if func.exc is not None:
+            exc, vxc = self._exc_vxc(dm)
+            veff = veff + vxc
             e2 = e2 + exc
         return veff, e2

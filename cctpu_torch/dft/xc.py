@@ -1,4 +1,4 @@
-"""Exchange-correlation functionals in torch: what HF and B3LYP need.
+"""Exchange-correlation functionals in torch: what HF, BLYP and B3LYP need.
 
 Port of the B3LYP pieces of ``cctpu/dft/xc.py``: each functional is an
 energy density e(rho_a, rho_b, sigma_aa, sigma_ab, sigma_bb, tau_a, tau_b)
@@ -7,8 +7,8 @@ coded: the XC Fock matrix is the autograd gradient of the integrated energy
 (``dft/rks.py``). All branches are NaN-safe under autograd (double-where
 low-density guards), as in the reference.
 
-Ported: Slater X, VWN3 C, B88 X, LYP C, and the composites ``hf`` and
-``b3lyp`` (VWN3, Gaussian/libxc convention). Every other functional of the
+Ported: Slater X, VWN3 C, B88 X, LYP C, and the composites ``hf``,
+``blyp`` (pure GGA) and ``b3lyp`` (VWN3, Gaussian/libxc convention). Every other functional of the
 reference is a later slice; ``get_functional`` says so.
 """
 
@@ -184,6 +184,7 @@ def _make_registry() -> Dict[str, XCFunctional]:
         reg[name] = XCFunctional(name=name, xctype=xctype, exc=exc, **kw)
 
     add("hf", "HF", None, hyb=1.0)
+    add("blyp", "GGA", _combine([(1, e_x_b88), (1, e_c_lyp)]))
     # B3LYP (Gaussian/libxc convention, VWN3):
     #   Exc = 0.08 E_x^LSDA + 0.72 E_x^B88 + 0.20 E_x^HF
     #       + 0.19 E_c^VWN3 + 0.81 E_c^LYP

@@ -2,8 +2,9 @@
 
 Port of the production DF path of ``cctpu/ints/df.py``. With
 B[P,i,j] = sum_Q Linv[P,Q] (Q|ij) and M^+ = Linv^T Linv, the SCF hot loop
-is J = B^T (B.D) and K from occupied orbitals, run by the fused Hopper
-kernel of ``cctpu_torch/ops/df_jk.py`` on the card.
+is J = B^T (B.D) and K from occupied orbitals, run by the Hopper kernels
+of ``cctpu_torch/ops/`` on the card (``df_jk``: fused closed-shell J+K;
+``df_j``: J alone or for two spins; ``df_k``: K per spin).
 
 Everything is built on the device in f64: the quartet kernel fills X and
 the metric class by class, ``metric_factor`` whitens on the device (eigh)
@@ -22,7 +23,9 @@ from cctpu_torch.core.basis import BasisSet, Shell, normalize_contraction, nsph
 from cctpu_torch.device import as_tensor
 from cctpu_torch.ints.two_electron import (class_chunk, eri_quartet_kernel,
                                            pair_classes, schwarz_q)
+from cctpu_torch.ops.df_j import df_j_fast
 from cctpu_torch.ops.df_jk import df_jk_fused
+from cctpu_torch.ops.df_k import df_k_fast
 
 # naux above which metric_factor switches from eigh to pivoted-Cholesky
 # subset selection (the same switch point as cctpu's _EIGH_NAUX_MAX)
@@ -241,37 +244,38 @@ def metric_factor(M: torch.Tensor, rcond: float = 1e-11,
 
 class _BContractions:
     """J/K contractions over a factor tensor B [naux, nao, nao]
-    ((ij|kl) ~= sum_P B[P,i,j] B[P,k,l])."""
+    ((ij|kl) ~= sum_P B[P,i,j] B[P,k,l]).
+
+    Every branch but the dm-contracted K runs a Hopper kernel on the card
+    and its plain torch twin on the CPU: the fused J+K for a closed-shell
+    cocc, ``df_j_fast`` for J otherwise (both spins in one pass for a
+    [2, nao, nao] dm), and ``df_k_fast`` once per spin of a tuple cocc."""
 
     def _k_of(self, B, dm, cocc):
         """Exchange via B: occupied-orbital form when cocc is given
         (exact for dm = C C^T; C columns carry sqrt(occupation)), else the
         dm contraction."""
         if cocc is None:
+            if B.is_cuda:
+                raise NotImplementedError(
+                    "DF K contracted with dm (cocc=None) has no kernel on "
+                    "the card: cctpu has no TPU kernel for it and only "
+                    "response code uses it (ROADMAP.md queue 2 item 5)")
             return torch.einsum("pik,...kl,pjl->...ij", B, dm, B)
         if isinstance(cocc, (tuple, list)):          # spin-resolved
             return torch.stack([self._k_of(B, None, c) for c in cocc])
-        W = torch.einsum("pik,ka->pia", B, cocc)
-        return torch.einsum("pia,pja->ij", W, W)
+        return df_k_fast(B, cocc.contiguous())
 
     def __call__(self, dm, with_k: bool = True, cocc=None):
         B = self.B
         if (dm.ndim == 2 and with_k and cocc is not None
                 and not isinstance(cocc, (tuple, list))):
-            # the fused single-pass J+K: the Hopper kernel on the card,
-            # its plain torch version on the CPU (the kernel takes
-            # row-major tensors; a caller's dm0 need not be)
+            # the fused single-pass J+K (the kernels take row-major
+            # tensors; a caller's dm0 need not be)
             return df_jk_fused(B, dm.contiguous(), cocc.contiguous())
-        if B.is_cuda:
-            raise NotImplementedError(
-                "DF J/K without the fused closed-shell form (with_k=False, "
-                "spin-resolved cocc, or cocc=None) needs the df_j_fast / "
-                "df_k_fast kernels, not yet ported (ROADMAP.md queue 2, "
-                "items 2 and 3)")
-        Jp = torch.einsum("pij,...ij->...p", B, dm)
-        J = torch.einsum("...p,pij->...ij", Jp, B)
+        # K first: the one branch without a kernel raises before any launch
         K = self._k_of(B, dm, cocc) if with_k else None
-        return J, K
+        return df_j_fast(B, dm.contiguous()), K
 
 
 class DFJK(_BContractions):

@@ -1,0 +1,125 @@
+"""Build the port's CUDA kernels with nvcc into shared libraries.
+
+Each ``csrc/<name>.cu`` (with the ``csrc/*.cuh`` headers it may include)
+is compiled at first use into ``build/cctpu_torch/<name>-<hash>.so``,
+keyed by a hash of the sources and flags, and loaded with ctypes. No
+PyTorch header is included, so a build takes seconds. ``compile_all``
+starts one nvcc per source at once and waits for all of them; every build
+failure raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cctpu_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+KERNELS = ("df_jk_fused", "df_j", "df_k")
+
+# compiler output of each build made by this process (ptxas register and
+# spill report), by kernel name
+BUILD_LOGS: dict = {}
+
+
+def nvcc() -> str:
+    for cand in (os.environ.get("NVCC"), shutil.which("nvcc")):
+        if cand:
+            return cand
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    raise RuntimeError("nvcc not found (set NVCC or CUDA_HOME)")
+
+
+def library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu`` builds to: keyed by the source, every
+    header in csrc/ and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        h.update(hdr.name.encode() + hdr.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def compile_all(names=KERNELS) -> None:
+    """Build every library of ``names`` that is not built yet, one nvcc
+    process per source, all started together."""
+    todo = [(n, library_path(n)) for n in names]
+    todo = [(n, so) for n, so in todo if not so.exists()]
+    if not todo:
+        return
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    exe = nvcc()
+    procs = []
+    for name, so in todo:
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        procs.append((name, so, tmp, subprocess.Popen(
+            [exe, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for name, so, tmp, proc in procs:
+        out, _ = proc.communicate()
+        BUILD_LOGS[name] = out
+        if proc.returncode != 0:
+            failed.append(f"nvcc {name}.cu failed ({proc.returncode}):\n"
+                          f"{out}")
+        else:
+            os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Build ``csrc/<name>.cu`` if needed and load it."""
+    compile_all([name])
+    return ctypes.CDLL(str(library_path(name)))
+
+
+def bind(lib: ctypes.CDLL, names, nptr_in: int, nint: int,
+         nptr_out: int) -> None:
+    """Set argtypes of the C entries ``names``: ``nptr_in`` pointers,
+    ``nint`` ints, ``nptr_out`` pointers (the stream last among them),
+    returning int; and of ``df_error_string`` (csrc/df_common.cuh), which
+    every library exports."""
+    args = ([ctypes.c_void_p] * nptr_in + [ctypes.c_int] * nint
+            + [ctypes.c_void_p] * nptr_out)
+    for name in names:
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
+    lib.df_error_string.argtypes = [ctypes.c_int]
+    lib.df_error_string.restype = ctypes.c_char_p
+
+
+def blocks(naux: int, device) -> tuple:
+    """(nblk, rows per block): one contiguous aux range per SM at most."""
+    import torch
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    rows = -(-naux // min(naux, sms))
+    return -(-naux // rows), rows
+
+
+def check_inputs(fn: str, tensors: dict) -> None:
+    """Raise ValueError unless the tensors are on one CUDA device, of one
+    dtype among float64/float32, and contiguous."""
+    import torch
+    ts = list(tensors.values())
+    dev = ts[0].device
+    if not (dev.type == "cuda" and all(t.device == dev for t in ts)):
+        got = ", ".join(str(t.device) for t in ts)
+        raise ValueError(f"{fn}: {', '.join(tensors)} must be on one CUDA "
+                         f"device (got {got})")
+    if ts[0].dtype not in (torch.float64, torch.float32) \
+            or any(t.dtype != ts[0].dtype for t in ts):
+        raise ValueError(f"{fn}: dtypes must be one of float64/float32 "
+                         f"(got {', '.join(str(t.dtype) for t in ts)})")
+    for name, t in tensors.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{fn}: {name} must be contiguous")

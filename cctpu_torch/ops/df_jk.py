@@ -16,32 +16,21 @@ device memory, and per-block partial J/K summed in a fixed order by a
 second kernel (no float atomics: repeat calls are bitwise equal).
 
 Dispatch: a CPU tensor takes ``df_jk_reference`` (plain torch); a CUDA
-tensor launches the kernel or raises. The kernel is built with nvcc at
-first use into ``build/cctpu_torch/`` (keyed by a hash of the source and
-flags) and bound with ctypes; a build failure raises.
+tensor launches the kernel or raises. The kernel (``csrc/df_jk_fused.cu``
+with the device code of ``csrc/df_wk.cuh``, shared with ``df_k``) is built
+by ``ops/build.py`` with nvcc at first use and bound with ctypes; a build
+failure raises.
 """
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
-
 import torch
+
+from cctpu_torch.ops import build as _build
 
 # kernel launches on the card since import (one per df_jk_fused call that
 # reached the kernel); chip_smoke.py resets and reads it
 LAUNCHES = 0
-# compiler output of the last build (ptxas register/spill report)
-BUILD_LOG = ""
-
-_SRC = Path(__file__).resolve().parent / "csrc" / "df_jk_fused.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cctpu_torch"
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _LIB = None
 
 
@@ -54,65 +43,24 @@ def df_jk_reference(B, D, Cocc):
     return J, K
 
 
-def _nvcc() -> str:
-    for cand in (os.environ.get("NVCC"), shutil.which("nvcc")):
-        if cand:
-            return cand
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
-        return os.path.join(CUDA_HOME, "bin", "nvcc")
-    raise RuntimeError("nvcc not found (set NVCC or CUDA_HOME)")
-
-
-def build() -> ctypes.CDLL:
+def build():
     """Compile (once per source hash) and load the kernel library."""
-    global _LIB, BUILD_LOG
-    if _LIB is not None:
-        return _LIB
-    src = _SRC.read_bytes()
-    key = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()
-    so = _BUILD_DIR / f"df_jk_fused-{key[:16]}.so"
-    if not so.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        proc = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", str(tmp),
-                               str(_SRC)], capture_output=True, text=True)
-        BUILD_LOG = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{BUILD_LOG}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
-    args = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
-            + [ctypes.c_void_p] * 6)
-    for name in ("df_jk_fused_f64", "df_jk_fused_f32"):
-        fn = getattr(lib, name)
-        fn.argtypes = args
-        fn.restype = ctypes.c_int
-    lib.df_jk_error_string.argtypes = [ctypes.c_int]
-    lib.df_jk_error_string.restype = ctypes.c_char_p
-    _LIB = lib
-    return lib
+    global _LIB
+    if _LIB is None:
+        lib = _build.load("df_jk_fused")
+        _build.bind(lib, ("df_jk_fused_f64", "df_jk_fused_f32"), 3, 5, 6)
+        _LIB = lib
+    return _LIB
 
 
 def _check(B, D, Cocc):
-    if not (B.is_cuda and D.device == B.device and Cocc.device == B.device):
-        raise ValueError("df_jk_fused: B, D and Cocc must be on one CUDA "
-                         f"device (got {B.device}, {D.device}, "
-                         f"{Cocc.device})")
-    if B.dtype not in (torch.float64, torch.float32) or \
-            D.dtype != B.dtype or Cocc.dtype != B.dtype:
-        raise ValueError(f"df_jk_fused: dtypes must be one of float64/"
-                         f"float32 (got {B.dtype}, {D.dtype}, {Cocc.dtype})")
+    _build.check_inputs("df_jk_fused", {"B": B, "D": D, "Cocc": Cocc})
     if B.ndim != 3 or B.shape[1] != B.shape[2] or D.shape != B.shape[1:] \
             or Cocc.ndim != 2 or Cocc.shape[0] != B.shape[1] \
             or Cocc.shape[1] < 1 or B.shape[0] < 1:
         raise ValueError(f"df_jk_fused: shapes B {tuple(B.shape)}, "
                          f"D {tuple(D.shape)}, Cocc {tuple(Cocc.shape)} "
                          "are not [naux,nao,nao], [nao,nao], [nao,nocc>=1]")
-    for name, t in (("B", B), ("D", D), ("Cocc", Cocc)):
-        if not t.is_contiguous():
-            raise ValueError(f"df_jk_fused: {name} must be contiguous")
 
 
 def df_jk_fused(B, D, Cocc):
@@ -127,9 +75,7 @@ def df_jk_fused(B, D, Cocc):
     lib = build()
     naux, nao, _ = B.shape
     nocc = Cocc.shape[1]
-    sms = torch.cuda.get_device_properties(B.device).multi_processor_count
-    rows = -(-naux // min(naux, sms))
-    nblk = -(-naux // rows)
+    nblk, rows = _build.blocks(naux, B.device)
     Jw = torch.empty((nblk, nao, nao), dtype=B.dtype, device=B.device)
     Kw = torch.empty_like(Jw)
     # one aux row's W_p per block, padded to the kernel's 4x4 micro-tiles
@@ -146,6 +92,6 @@ def df_jk_fused(B, D, Cocc):
                  Ws.data_ptr(), J.data_ptr(), K.data_ptr(), stream)
     if err != 0:
         raise RuntimeError("df_jk_fused launch failed: "
-                           + lib.df_jk_error_string(err).decode())
+                           + lib.df_error_string(err).decode())
     LAUNCHES += 1
     return J, K

@@ -1,11 +1,13 @@
-"""Hartree–Fock: closed-shell RHF with DIIS, level shift and damping.
+"""Hartree–Fock: closed-shell RHF and open-shell UHF with DIIS, level
+shift and damping.
 
 Port of the f64 path of ``cctpu/scf/hf.py``. The per-cycle work — J/K
 build, Fock assembly, DIIS extrapolation, generalized eigensolve — runs
 eagerly in torch on the molecule's device; the Python loop checks the
-convergence scalars. Supports the ``kernel(dm0=dm)`` warm start.
+convergence scalars. Supports the ``kernel(dm0=dm)`` warm start. UHF keeps
+the two spin densities stacked as [2, nao, nao].
 
-Only density-fitted J/K (``density_fit=True``) is ported so far; UHF/ROHF,
+Only density-fitted J/K (``density_fit=True``) is ported so far; ROHF,
 in-core and Cholesky J/K and the mixed/f32 precision modes are later
 slices (ROADMAP.md queue 1).
 """
@@ -21,7 +23,8 @@ from typing import Optional
 import torch
 
 from cctpu_torch.core import elements as elem
-from cctpu_torch.core.basis import BasisSet, build_basis
+from cctpu_torch.core.basis import (BasisSet, build_basis, get_basis_text,
+                                    parse_nwchem)
 from cctpu_torch.core.molecule import Molecule
 from cctpu_torch.device import DTYPE, default_device
 from cctpu_torch.ints.one_electron import build_int1e_eager
@@ -83,10 +86,24 @@ def _minao_guess(mol: Molecule, coords: torch.Tensor) -> torch.Tensor:
     return dm
 
 
+def _minao_covers(mol: Molecule) -> bool:
+    """Whether every element of ``mol`` has an STO-3G table, which the
+    minao guess projects from (else the guess is the core Hamiltonian's)."""
+    table = parse_nwchem(get_basis_text("sto-3g"))
+    return all(el in table for el in mol.element_symbols)
+
+
 def occ_rhf(mo_energy: torch.Tensor, nelec: int) -> torch.Tensor:
     n = mo_energy.shape[-1]
     return (torch.arange(n, device=mo_energy.device) < nelec // 2).to(
         mo_energy.dtype) * 2.0
+
+
+def occ_uhf(mo_energy: torch.Tensor, nalpha: int,
+            nbeta: int) -> torch.Tensor:
+    """[2, n] occupations (alpha, beta) of 1 or 0."""
+    idx = torch.arange(mo_energy.shape[-1], device=mo_energy.device)
+    return torch.stack([idx < nalpha, idx < nbeta]).to(mo_energy.dtype)
 
 
 def _orthogonalizer(S: torch.Tensor) -> torch.Tensor:
@@ -176,17 +193,46 @@ class SCFBase:
         """Occupied-orbital factor of a density matrix: the top-nocc
         eigenpairs in descending order, columns scaled by
         sqrt(eigenvalue) (clipped at 0). Exact for an idempotent dm; for a
-        guess dm the truncation only perturbs the first Fock."""
-        nocc = max(self.mol.nelectron // 2, 1)
-        w, U = torch.linalg.eigh(dm)
-        w = torch.clamp(w.flip(0), min=0.0)
-        U = U.flip(1)
-        return (U[:, :nocc] * torch.sqrt(w[None, :nocc])).contiguous()
+        guess dm the truncation only perturbs the first Fock. A [2, n, n]
+        dm gives one factor per spin, each of at least one column."""
+        def one(d, nocc):
+            w, U = torch.linalg.eigh(d)
+            w = torch.clamp(w.flip(0), min=0.0)
+            U = U.flip(1)
+            return (U[:, :nocc] * torch.sqrt(w[None, :nocc])).contiguous()
+        if dm.ndim == 3:
+            return (one(dm[0], max(self.mol.nalpha, 1)),
+                    one(dm[1], max(self.mol.nbeta, 1)))
+        return one(dm, max(self.mol.nelectron // 2, 1))
 
     def init_guess_dm(self):
         """Superposition of spherically averaged atomic densities projected
-        from STO-3G (cctpu's 'minao' guess)."""
-        return _minao_guess(self.mol, self.coords)
+        from STO-3G (cctpu's 'minao' guess), split by spin for UHF; the
+        core-Hamiltonian guess when an element has no STO-3G table."""
+        if not _minao_covers(self.mol):
+            ints = self.build_ints()
+            X = _orthogonalizer(ints["S"])
+            e, C = _fock_eig(ints["T"] + ints["V"], X)
+            return self._dm_from_mo(e, C)
+        dm = _minao_guess(self.mol, self.coords)
+        if self.restricted:
+            return dm
+        na, nb = self.mol.nalpha, self.mol.nbeta
+        if na == nb:
+            # unrestricted singlet: a spin-symmetric guess is a fixed point
+            # of the UHF map, so go through the natural orbitals of the
+            # minao density and let _dm_from_mo rotate the beta frontier
+            # pair
+            S = self.build_ints()["S"]
+            X = _orthogonalizer(S)
+            w, V = torch.linalg.eigh(X.T @ S @ dm @ S @ X)
+            order = torch.argsort(-w)
+            return self._dm_from_mo(-w[order], X @ V[:, order])
+        ne = self.mol.nelectron
+        return torch.stack([dm * (na / ne), dm * (nb / ne)])
+
+    def _dm_from_mo(self, e, C):
+        raise NotImplementedError
 
     # -- main loop ---------------------------------------------------------
     def kernel(self, dm0=None) -> float:
@@ -258,7 +304,8 @@ class SCFBase:
             self.mol.basis_set, self.coords,
             torch.as_tensor(self.mol.charges, dtype=DTYPE,
                             device=self.device), with_dipole=True)
-        el = -torch.einsum("dij,ij->d", ints["dipole"], self.dm)
+        dm = self.dm.sum(0) if self.dm.ndim == 3 else self.dm
+        el = -torch.einsum("dij,ij->d", ints["dipole"], dm)
         nuc = torch.einsum("i,ix->x", torch.as_tensor(
             self.mol.charges, dtype=DTYPE, device=self.device), self.coords)
         mu = (el + nuc).cpu().numpy()
@@ -270,6 +317,10 @@ class RHF(SCFBase):
 
     def _occ(self, mo_e):
         return occ_rhf(mo_e, self.mol.nelectron)
+
+    def _dm_from_mo(self, e, C):
+        occ = occ_rhf(e, self.mol.nelectron)
+        return (C * occ[None, :]) @ C.T
 
     def get_veff(self, dm, cocc=None):
         J, K = self._jk(dm, cocc=cocc)
@@ -299,3 +350,78 @@ class RHF(SCFBase):
         dm_new = (mo_c * occ[None, :]) @ mo_c.T
         cocc_new = (mo_c[:, :nocc] * torch.sqrt(occ[None, :nocc])).contiguous()
         return diis, dm_new, cocc_new, e_elec, err_norm, mo_e, mo_c
+
+
+class UHF(SCFBase):
+    """Unrestricted HF: dm, Fock, orbitals and energies stacked over the
+    two spins (alpha, beta)."""
+
+    restricted = False
+
+    def _occ(self, mo_e):
+        return occ_uhf(mo_e, self.mol.nalpha, self.mol.nbeta)
+
+    def _dm_from_mo(self, e, C):
+        """Spin-restricted orbitals -> (alpha, beta) densities. For
+        nalpha == nbeta the beta HOMO/LUMO pair is rotated by 45 degrees:
+        a strictly spin-symmetric guess is a fixed point of the UHF map
+        (singlet biradicals would converge to the RHF saddle point)."""
+        occ = occ_uhf(e, self.mol.nalpha, self.mol.nbeta)
+        Cb = C
+        nb = self.mol.nbeta
+        if self.mol.nalpha == nb and 0 < nb < C.shape[1]:
+            h, lo = nb - 1, nb
+            c = s = math.sqrt(0.5)
+            Cb = C.clone()
+            Cb[:, h] = c * C[:, h] - s * C[:, lo]
+            Cb[:, lo] = s * C[:, h] + c * C[:, lo]
+        dma = (C * occ[0][None, :]) @ C.T
+        dmb = (Cb * occ[1][None, :]) @ Cb.T
+        return torch.stack([dma, dmb])
+
+    def get_veff(self, dm, cocc=None):
+        J, K = self._jk(dm, cocc=cocc)          # [2, n, n] each
+        Jtot = J[0] + J[1]
+        veff = torch.stack([Jtot - K[0], Jtot - K[1]])
+        ecoul = 0.5 * torch.einsum("sij,ij->", dm, Jtot)
+        exx = -0.5 * torch.einsum("sij,sij->", dm, K)
+        return veff, ecoul + exx
+
+    def _step(self, H, S, X, diis, dm, cocc, use_diis):
+        """One SCF cycle on both spins: Fock build at dm, stacked DIIS
+        (per-spin error vectors), level shift, per-spin diagonalization."""
+        na, nb = self.mol.nalpha, self.mol.nbeta
+        na_c, nb_c = max(na, 1), max(nb, 1)
+        ls = self.opts.level_shift
+        veff, e2 = self.get_veff(dm, cocc=cocc)
+        F = H[None] + veff                       # [2, n, n]
+        e_elec = torch.einsum("sij,ij->", dm, H) + e2
+        sdf = S @ dm @ F
+        err = X.T @ (sdf - sdf.transpose(1, 2)) @ X
+        err_norm = torch.linalg.norm(err)
+        diis, F_x = diis_update(diis, F, err)
+        F_use = F_x if use_diis else F
+        if ls:
+            F_use = F_use + ls * (S - S @ dm @ S)
+        ea, Ca = _fock_eig(F_use[0], X)
+        eb, Cb = _fock_eig(F_use[1], X)
+        mo_e = torch.stack([ea, eb])
+        occ = occ_uhf(mo_e, na, nb)
+        dm_new = torch.stack([(Ca * occ[0][None, :]) @ Ca.T,
+                              (Cb * occ[1][None, :]) @ Cb.T])
+        # nbeta = 0 keeps one zero column (a K of 0, through the kernel)
+        cocc_new = ((Ca[:, :na_c] * torch.sqrt(occ[0][None, :na_c]))
+                    .contiguous(),
+                    (Cb[:, :nb_c] * torch.sqrt(occ[1][None, :nb_c]))
+                    .contiguous())
+        return (diis, dm_new, cocc_new, e_elec, err_norm, mo_e,
+                torch.stack([Ca, Cb]))
+
+    def spin_square(self):
+        """(<S^2>, multiplicity 2S+1) of the converged UHF determinant."""
+        S = self.build_ints()["S"]
+        na, nb = self.mol.nalpha, self.mol.nbeta
+        ovlp = self.mo_coeff[0][:, :na].T @ S @ self.mo_coeff[1][:, :nb]
+        sz = 0.5 * (na - nb)
+        s2 = sz * sz + sz + nb - float(torch.sum(ovlp * ovlp))
+        return s2, 2 * math.sqrt(s2 + 0.25)

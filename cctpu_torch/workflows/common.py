@@ -1,7 +1,8 @@
 """Shared workflow machinery: flag contract, logging, method dispatch.
 
 Port of ``cctpu/workflows/common.py`` for the methods the port has
-(``hf`` and ``b3lyp``, closed shell, density fitted). The flag contract,
+(``hf``, ``blyp`` and ``b3lyp``; RHF/RKS for closed shells, UHF/UKS for
+``spin != 0``; density fitted). The flag contract,
 the dual short/log reports and their naming scheme
 ``{smiles}_{script}_{method}_{basis}_{short|log}_report.txt`` are the
 reference's.
@@ -49,7 +50,7 @@ def add_common_args(p: argparse.ArgumentParser, default_method="b3lyp",
                     default_basis="6-31g*"):
     p.add_argument("--smiles", required=True, help="input molecule SMILES")
     p.add_argument("--method", default=default_method,
-                   help="hf | b3lyp (the functionals ported so far)")
+                   help="hf | blyp | b3lyp (the methods ported so far)")
     p.add_argument("--basis", default=default_basis)
     p.add_argument("--charge", type=int, default=None,
                    help="default: formal charge from SMILES")
@@ -94,19 +95,18 @@ def make_scf(mol: Molecule, method: str, density_fit: Optional[bool] = None,
         raise NotImplementedError(
             f"nao {mol.nao} <= 160 selects in-core J/K, which is not ported "
             "yet (ROADMAP.md queue 1 item 9); pass --density-fit")
-    if mol.spin != 0:
-        raise NotImplementedError("open-shell UHF/UKS is not ported yet "
-                                  "(ROADMAP.md queue 1)")
     if m == "mp2":
         raise NotImplementedError("MP2 is not ported yet (ROADMAP.md "
                                   "queue 1 item 15)")
+    open_shell = mol.spin != 0
     if m == "hf":
-        from cctpu_torch.scf.hf import RHF
-        mf = RHF(mol, density_fit=density_fit, **opts)
+        from cctpu_torch.scf.hf import RHF, UHF
+        mf = (UHF if open_shell else RHF)(mol, density_fit=density_fit,
+                                          **opts)
     else:
-        from cctpu_torch.dft.rks import RKS
-        mf = RKS(mol, xc=m, density_fit=density_fit, grid_level=grid_level,
-                 **opts)
+        from cctpu_torch.dft.rks import RKS, UKS
+        mf = (UKS if open_shell else RKS)(mol, xc=m, density_fit=density_fit,
+                                          grid_level=grid_level, **opts)
     return mf
 
 
@@ -155,8 +155,13 @@ def build_molecule(args, basis=None, spin=None, log=None) -> Molecule:
 
 
 def homo_lumo(mf):
+    """(HOMO, LUMO) energies; the alpha spin's for UHF/UKS."""
     e = mf.mo_energy.cpu().numpy()
-    nocc = mf.mol.nelectron // 2
+    if e.ndim == 2:
+        e = e[0]
+        nocc = mf.mol.nalpha
+    else:
+        nocc = mf.mol.nelectron // 2
     return float(e[nocc - 1]), float(e[nocc])
 
 

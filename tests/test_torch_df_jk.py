@@ -99,7 +99,7 @@ def test_dfjk_cpu_jk_matches_cctpu(water_dfjk):
     Jt, Kt = jt(torch.as_tensor(D), cocc=torch.as_tensor(C))
     assert _rel(Jt.numpy(), Jj) < 1e-10
     assert _rel(Kt.numpy(), Kj) < 1e-10
-    # the branches the card does not have yet take the einsums on the CPU
+    # the other branches (dm-contracted K; J alone) on the CPU
     J2, K2 = jt(torch.as_tensor(D), with_k=True, cocc=None)
     J3, K3 = jt(torch.as_tensor(D), with_k=False, cocc=torch.as_tensor(C))
     assert K3 is None

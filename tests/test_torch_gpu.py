@@ -1,7 +1,7 @@
-"""Tests of the port that need the card: the CUDA kernel against its plain
-version, and the CUDA dispatch (launch or raise). They skip without a CUDA
-device. This file imports neither JAX nor cctpu, so it also runs on a
-machine without them:
+"""Tests of the port that need the card: the CUDA kernels (fused J+K, J,
+K) against their plain versions, and the CUDA dispatch (launch or raise).
+They skip without a CUDA device. This file imports neither JAX nor cctpu,
+so it also runs on a machine without them:
 
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
 """
@@ -12,7 +12,7 @@ import torch
 
 from cctpu_torch.core.molecule import Molecule
 from cctpu_torch.ints.df import DFJK
-from cctpu_torch.ops import df_jk
+from cctpu_torch.ops import df_j, df_jk, df_k
 
 pytestmark = pytest.mark.gpu
 
@@ -56,6 +56,28 @@ def test_kernel_matches_plain_on_card(dev, shape, dtype, tol):
     assert torch.equal(J, J2) and torch.equal(K, K2)     # deterministic
 
 
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+def test_df_j_k_match_plain_on_card(dev, shape, dtype, tol):
+    """df_j_fast for one and two densities, df_k_fast, each against its
+    plain twin; repeat calls bitwise equal; one launch per call."""
+    B, D, C = _inputs(*shape, shape[0] + 1, dtype, dev)
+    D2 = torch.stack([D, D @ D / D.abs().max()])
+    before = (df_j.LAUNCHES, df_k.LAUNCHES)
+    J, J2 = df_j.df_j_fast(B, D), df_j.df_j_fast(B, D2)
+    K = df_k.df_k_fast(B, C)
+    assert torch.equal(J2, df_j.df_j_fast(B, D2))
+    assert torch.equal(K, df_k.df_k_fast(B, C))
+    assert (df_j.LAUNCHES, df_k.LAUNCHES) == (before[0] + 3, before[1] + 2)
+    assert _rel(J, df_j.df_j_reference(B, D)) < tol
+    for s in range(2):
+        assert _rel(J2[s], df_j.df_j_reference(B, D2[s])) < tol
+    assert _rel(K, df_k.df_k_reference(B, C)) < tol
+    zero = torch.zeros((shape[1], 1), dtype=dtype, device=dev)
+    assert torch.count_nonzero(df_k.df_k_fast(B, zero)) == 0
+
+
 def test_kernel_rejects_what_it_does_not_take(dev):
     B, D, C = _inputs(8, 6, 2, 0, torch.float64, dev)
     with pytest.raises(ValueError, match="contiguous"):
@@ -64,21 +86,46 @@ def test_kernel_rejects_what_it_does_not_take(dev):
         df_jk.df_jk_fused(B, D.float(), C)
     with pytest.raises(ValueError, match="CUDA"):
         df_jk.df_jk_fused(B, D.cpu(), C)
+    with pytest.raises(ValueError, match="nset"):
+        df_j.df_j_fast(B, torch.stack([D, D, D]))
+    with pytest.raises(ValueError, match="contiguous"):
+        df_k.df_k_fast(B, C.T.contiguous().T)
 
 
 def test_dfjk_on_card_launches_or_raises(dev):
+    """Every branch of the DF J/K dispatch launches its kernel on the card,
+    except the dm-contracted K (cocc=None), which raises before any
+    launch."""
     mol = Molecule.from_atoms(WATER, basis="sto-3g")
     jk = DFJK(mol, torch.as_tensor(mol.coords, dtype=torch.float64,
                                    device=dev))
-    C = torch.as_tensor(np.random.default_rng(1).standard_normal((7, 5)),
-                        device=dev)
-    D = C @ C.T
-    before = df_jk.LAUNCHES
+    rng = np.random.default_rng(1)
+    C = torch.as_tensor(rng.standard_normal((7, 5)), device=dev)
+    Cb = torch.as_tensor(rng.standard_normal((7, 4)), device=dev)
+    D, Db = C @ C.T, Cb @ Cb.T
+
+    def counts():
+        return df_jk.LAUNCHES, df_j.LAUNCHES, df_k.LAUNCHES
+
+    before = counts()
     J, K = jk(D, cocc=C)
-    assert df_jk.LAUNCHES == before + 1
+    assert counts() == (before[0] + 1, before[1], before[2])
     Jr, Kr = df_jk.df_jk_reference(jk.B, D, C)
     assert _rel(J, Jr) < 1e-12 and _rel(K, Kr) < 1e-12
-    for kw in ({"with_k": False, "cocc": C}, {"cocc": None},
-               {"cocc": (C, C)}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            jk(D, **kw)
+
+    before = counts()
+    J1, K1 = jk(D, with_k=False, cocc=C)            # pure functional
+    assert counts() == (before[0], before[1] + 1, before[2])
+    assert K1 is None and _rel(J1, Jr) < 1e-12
+
+    before = counts()
+    J2, K2 = jk(torch.stack([D, Db]), cocc=(C, Cb))   # UHF / UKS
+    assert counts() == (before[0], before[1] + 1, before[2] + 2)
+    Jbr, Kbr = df_jk.df_jk_reference(jk.B, Db, Cb)
+    assert _rel(J2[0], Jr) < 1e-12 and _rel(K2[0], Kr) < 1e-12
+    assert _rel(J2[1], Jbr) < 1e-12 and _rel(K2[1], Kbr) < 1e-12
+
+    before = counts()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        jk(D, cocc=None)
+    assert counts() == before
