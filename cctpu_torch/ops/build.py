@@ -20,7 +20,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cctpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-ldl"]
 KERNELS = ("df_jk_fused", "df_j", "df_k")
 
 # compiler output of each build made by this process (ptxas register and
@@ -96,6 +97,49 @@ def bind(lib: ctypes.CDLL, names, nptr_in: int, nint: int,
         fn.restype = ctypes.c_int
     lib.df_error_string.argtypes = [ctypes.c_int]
     lib.df_error_string.restype = ctypes.c_char_p
+
+
+def smem_cap(device) -> int:
+    """Bytes of shared memory a block may opt in to on ``device`` (what the
+    launch plans of ops/plan.py are made for)."""
+    import torch
+    return torch.cuda.get_device_properties(
+        device).shared_memory_per_block_optin
+
+
+def sass_count(name: str, opcode: str) -> int:
+    """How many instructions of the built library ``name`` start with
+    ``opcode`` (``cuobjdump -sass``, from nvcc's directory)."""
+    exe = os.path.join(os.path.dirname(nvcc()), "cuobjdump")
+    out = subprocess.run([exe, "-sass", str(library_path(name))],
+                         capture_output=True, text=True, check=True).stdout
+    return sum(1 for ln in out.splitlines()
+               if f" {opcode}" in ln and ln.lstrip().startswith("/*"))
+
+
+def ptxas_report(name: str, match: str) -> list:
+    """Registers and spills of the entry functions of library ``name``
+    whose mangled name contains ``match``: from this process's build log,
+    or, where the library was built before, its registers and stack bytes
+    from ``cuobjdump -res-usage``."""
+    out, fn = [], None
+    for ln in BUILD_LOGS.get(name, "").splitlines():
+        if "Compiling entry function" in ln or "Function properties" in ln:
+            fn = ln.split("'")[1] if "'" in ln else ln.split()[-1]
+        elif fn and match in fn and ("registers" in ln or "spill" in ln):
+            out.append(f"{fn}: {ln.split(':', 1)[-1].strip()}")
+    if out or name in BUILD_LOGS:
+        return out
+    exe = os.path.join(os.path.dirname(nvcc()), "cuobjdump")
+    res = subprocess.run([exe, "-res-usage", str(library_path(name))],
+                         capture_output=True, text=True, check=True).stdout
+    for ln in res.splitlines():
+        ln = ln.strip()
+        if ln.startswith("Function "):
+            fn = ln[len("Function "):].rstrip(":")
+        elif fn and match in fn and ln.startswith("REG:"):
+            out.append(f"{fn}: {' '.join(ln.split()[:2])}")
+    return out
 
 
 def blocks(naux: int, device) -> tuple:

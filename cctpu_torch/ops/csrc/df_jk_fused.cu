@@ -6,61 +6,69 @@
 //     jp[p] = sum_ij B[p,i,j] D[i,j]        J = sum_p jp[p] B[p]
 //     W_p   = (B[p] C)^T  ([nocc, nao])    K = sum_p W_p^T W_p
 // streaming B through shared memory, without ever writing the full
-// W [naux, nocc, nao] to device memory. The device code is
-// df_wk.cuh's wk_partial with WITH_J = true, then df_common.cuh's
-// partial_sum.
-//
-// Design (simple first: FMA loops, no wgmma/TMA/pipelining yet):
-//   * wk_partial: block b owns a contiguous range of aux rows and walks
-//     it in order. Per row p it loads B[p] in column tiles B[p][:, k0:k0+kt]
-//     into shared memory (accumulating the jp partial while loading), adds
-//     the tile's contribution to W_p, reduces jp[p] over the block in a
-//     fixed tree order, and then adds jp[p] B[p] and W_p^T W_p into the
-//     block's own partial J and K in a workspace [nblk, nao, nao]. When the
-//     whole B[p] fits in shared memory (kt == nao: nao up to ~150 in FP64)
-//     it is read from device memory exactly once; otherwise the J update
-//     re-reads the row the block has just streamed, which mostly hits L2.
-//     W_p lives in shared memory when it fits, else in a per-block scratch
-//     slab of one aux row's W_p in device memory.
-//     Each thread computes 4x4 register micro-tiles of W_p and of K (two
-//     shared-memory loads per four FMAs instead of two per one), and K, a
-//     symmetric product, only on the upper triangle of 4x4 tiles.
-//   * partial_sum: sums the nblk partials of J, then of K, in block-index
-//     order, and mirrors K's lower tile triangle from the upper one.
-//   No float atomics anywhere: two calls on the same inputs give
-//   bitwise-equal J and K.
+// W [naux, nocc, nao] to device memory.
 //
 // Bound: B is naux*nao^2*8 bytes per call in FP64 (171 MB at phenol
 // 6-31G*, 4.1 GB at C16H34), which makes the call bound by device-memory
 // bandwidth at small nocc; the W and K products add 3*nocc flops per B
 // element (2 for W, 1 for the symmetric K), so from nocc ~ 25 on the FP64
-// rate is the other bound.
-// The design streams B once per call from device memory (the J sweep's
-// second look at a row comes from shared memory or L2) and keeps W on
-// chip or in one small slab per block, so bytes stay near the B floor;
-// the flops move to the tensor cores (DMMA/wgmma) in a later version.
+// rate, which only the tensor cores reach, is the other bound.
 //
-// C interface (bound with ctypes): pointers and the stream are void*, the
-// return value is cudaGetLastError() after the launches.
+// Design: df_wk.cuh's device code with WITH_J = true (its head has the
+// details). In FP64, wk_mma: each block owns a contiguous aux range; B[p]
+// arrives in column tiles by tensor copies (TMA; cp.async where nao is
+// odd), a ring of tiles deep; W_p^T is accumulated on FP64 tensor-core
+// tiles held in registers over the whole k range and goes to shared memory
+// once per aux row; K adds
+// W_p^T W_p on tensor-core tiles of the upper triangle, kept in registers
+// for the block's whole aux range at phenol's size and in a per-block
+// partial in device memory at C16H34's; jp[p] is summed from the tiles as
+// they land. At phenol's size jp[p] B[p] is added into a partial J in
+// shared memory; at C16H34's, where that does not fit, the kernel stores
+// jp and a second pass over B (j_pass) adds jp[p] B[p] with no partials.
+// The per-block partials are summed in block order (wk_sum). No float
+// atomics: two calls on the same inputs give bitwise-equal J and K. FP32,
+// and FP64 shapes whose W_p does not fit in shared memory, run wk_partial
+// (FMA loops).
+//
+// C interface (bound with ctypes): pointers and the stream are void*; the
+// plan integers are those of ops/plan.py::PLAN_INTS, then vec16 (B, and D,
+// 16-byte aligned and nao even: else no tensor copies); Wslab is the
+// scratch of the plan (the FMA kernel's W_p slab, or room for the packed
+// C); the return value is cudaGetLastError() after the launches, or
+// cudaErrorInvalidValue for a plan that is inconsistent or over the
+// shared-memory cap.
 
 #include "df_wk.cuh"
 
 extern "C" {
 
 int df_jk_fused_f64(const void* B, const void* D, const void* C, int naux,
-                    int nao, int nocc, int nblk, int rows_per_blk, void* Jw,
-                    void* Kw, void* Wslab, void* J, void* K, void* stream) {
-  return dfk::launch_wk<double, true>(B, D, C, naux, nao, nocc, nblk,
-                                      rows_per_blk, Jw, Kw, Wslab, J, K,
-                                      stream);
+                    int nao, int nocc, int nblk, int rows_per_blk,
+                    int kind, int variant, int kt, int stages, int wm,
+                    int mt_panel, int w_in_smem, int j_in_smem, int alias,
+                    int tma, int smem_bytes, int vec16,
+                    void* Jw, void* Kw, void* Wslab, void* J, void* K,
+                    void* stream) {
+  return dfk::launch_wk<double, true>(
+      B, D, C, naux, nao, nocc, nblk, rows_per_blk,
+      {kind, variant, kt, stages, wm, mt_panel, w_in_smem, j_in_smem,
+       alias, tma, smem_bytes},
+      vec16, Jw, Kw, Wslab, J, K, stream);
 }
 
 int df_jk_fused_f32(const void* B, const void* D, const void* C, int naux,
-                    int nao, int nocc, int nblk, int rows_per_blk, void* Jw,
-                    void* Kw, void* Wslab, void* J, void* K, void* stream) {
-  return dfk::launch_wk<float, true>(B, D, C, naux, nao, nocc, nblk,
-                                     rows_per_blk, Jw, Kw, Wslab, J, K,
-                                     stream);
+                    int nao, int nocc, int nblk, int rows_per_blk,
+                    int kind, int variant, int kt, int stages, int wm,
+                    int mt_panel, int w_in_smem, int j_in_smem, int alias,
+                    int tma, int smem_bytes, int vec16,
+                    void* Jw, void* Kw, void* Wslab, void* J, void* K,
+                    void* stream) {
+  return dfk::launch_wk<float, true>(
+      B, D, C, naux, nao, nocc, nblk, rows_per_blk,
+      {kind, variant, kt, stages, wm, mt_panel, w_in_smem, j_in_smem,
+       alias, tma, smem_bytes},
+      vec16, Jw, Kw, Wslab, J, K, stream);
 }
 
 }  // extern "C"

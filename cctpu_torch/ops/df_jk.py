@@ -6,19 +6,25 @@ The CUDA C++ kernel is ``csrc/df_jk_fused.cu`` (sm_90a, FP64 and FP32).
 
 What bounds it on the card: B is naux*nao^2*8 bytes per call in FP64, 171
 MB at phenol/6-31G* and 4.1 GB at C16H34/6-31G*, read every SCF cycle, so
-the call is bound by device-memory bandwidth; the W_p = (B[p] C)^T and
-W_p^T W_p products add 4*nocc flops per element of B (3*nocc with K's
-symmetry), which makes FP64 FMA throughput the second bound from nocc ~ 25
-on. What the design does
-about it: one streaming pass over B per call, W_p kept in shared memory
-(or a one-row slab per block), never the full W [naux, nocc, nao] in
-device memory, and per-block partial J/K summed in a fixed order by a
-second kernel (no float atomics: repeat calls are bitwise equal).
+the call is bound by device-memory bandwidth at small nocc; the
+W_p = (B[p] C)^T and W_p^T W_p products add 3*nocc flops per element of B
+(2 for W, 1 for the symmetric K), which makes the FP64 tensor-core rate
+the bound at C16H34 (nocc 65). What the design does about it (``csrc/
+df_wk.cuh``, shared with ``df_k``): one streaming pass over B by
+asynchronous copies into a ring of tiles; both products on the FP64 tensor
+cores (``mma.sync.m16n8k4``), W_p^T accumulated in registers over the
+whole k range and written to shared memory once per aux row, never to
+device memory; K on tiles of the upper triangle, in registers for a
+block's whole aux range where it fits (phenol); the partial J in shared
+memory where it fits, else jp stored and J added in a second pass over B;
+per-block partials summed in block order (no float atomics: repeat calls
+are bitwise equal). ``ops/plan.py::wk_plan`` chooses the tile sizes, the
+ring and where W, J and K partials live; f32 calls, and f64 shapes whose
+W_p does not fit in shared memory, run the FMA kernel of the same file.
 
 Dispatch: a CPU tensor takes ``df_jk_reference`` (plain torch); a CUDA
-tensor launches the kernel or raises. The kernel (``csrc/df_jk_fused.cu``
-with the device code of ``csrc/df_wk.cuh``, shared with ``df_k``) is built
-by ``ops/build.py`` with nvcc at first use and bound with ctypes; a build
+tensor launches the kernel or raises. The kernel is built by
+``ops/build.py`` with nvcc at first use and bound with ctypes; a build
 failure raises.
 """
 
@@ -27,10 +33,13 @@ from __future__ import annotations
 import torch
 
 from cctpu_torch.ops import build as _build
+from cctpu_torch.ops import plan as _plan
 
 # kernel launches on the card since import (one per df_jk_fused call that
 # reached the kernel); chip_smoke.py resets and reads it
 LAUNCHES = 0
+# the plan (ops/plan.py::wk_plan) of the last launch
+LAST_PLAN = None
 _LIB = None
 
 
@@ -48,7 +57,8 @@ def build():
     global _LIB
     if _LIB is None:
         lib = _build.load("df_jk_fused")
-        _build.bind(lib, ("df_jk_fused_f64", "df_jk_fused_f32"), 3, 5, 6)
+        _build.bind(lib, ("df_jk_fused_f64", "df_jk_fused_f32"), 3,
+                    5 + len(_plan.PLAN_INTS) + 1, 6)
         _LIB = lib
     return _LIB
 
@@ -67,7 +77,7 @@ def df_jk_fused(B, D, Cocc):
     """J, K of the DF factor B [naux, nao, nao] for density D [nao, nao]
     and occupied factor Cocc [nao, nocc] (columns carry sqrt(occupation)).
     CPU tensors: plain torch. CUDA tensors: the Hopper kernel, or raise."""
-    global LAUNCHES
+    global LAUNCHES, LAST_PLAN
     if B.device.type == "cpu" and D.device.type == "cpu" \
             and Cocc.device.type == "cpu":
         return df_jk_reference(B, D, Cocc)
@@ -76,22 +86,24 @@ def df_jk_fused(B, D, Cocc):
     naux, nao, _ = B.shape
     nocc = Cocc.shape[1]
     nblk, rows = _build.blocks(naux, B.device)
-    Jw = torch.empty((nblk, nao, nao), dtype=B.dtype, device=B.device)
-    Kw = torch.empty_like(Jw)
-    # one aux row's W_p per block, padded to the kernel's 4x4 micro-tiles
-    Ws = torch.empty((nblk, -(-nocc // 4) * 4, -(-nao // 4) * 4),
-                     dtype=B.dtype, device=B.device)
+    plan = _plan.wk_plan(nao, nocc, B.element_size(),
+                         _build.smem_cap(B.device), True)
+    Jw, Kw, Ws = _plan.workspaces(plan, nblk, naux, B)
     J = torch.empty((nao, nao), dtype=B.dtype, device=B.device)
     K = torch.empty_like(J)
     fn = lib.df_jk_fused_f64 if B.dtype == torch.float64 \
         else lib.df_jk_fused_f32
+    vec16 = int(nao % 2 == 0 and B.data_ptr() % 16 == 0
+                and D.data_ptr() % 16 == 0)      # D's tiles are copied as B's
     with torch.cuda.device(B.device):
         stream = torch.cuda.current_stream(B.device).cuda_stream
         err = fn(B.data_ptr(), D.data_ptr(), Cocc.data_ptr(), naux, nao,
-                 nocc, nblk, rows, Jw.data_ptr(), Kw.data_ptr(),
-                 Ws.data_ptr(), J.data_ptr(), K.data_ptr(), stream)
+                 nocc, nblk, rows, *_plan.plan_ints(plan), vec16,
+                 Jw.data_ptr(), Kw.data_ptr(), _plan.ptr(Ws), J.data_ptr(),
+                 K.data_ptr(), stream)
     if err != 0:
         raise RuntimeError("df_jk_fused launch failed: "
                            + lib.df_error_string(err).decode())
     LAUNCHES += 1
+    LAST_PLAN = plan
     return J, K

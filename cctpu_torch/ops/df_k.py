@@ -13,11 +13,16 @@ FP64 (162 MB at phenoxyl/6-31G*, 4.1 GB at C16H34/6-31G*), and does
 device-memory bandwidth at phenoxyl (nocc 25, ~0.05 ms at 3.35 TB/s) and by
 the FP64 rate at C16H34 (nocc 65, ~1.5 ms at the 67 TFLOP/s FP64
 tensor-core peak). What the design does
-about it: one streaming pass over B; W_p = (B[p] C)^T is built in shared
-memory (or a one-row slab per block), never as [naux, nocc, nao] in device
-memory; per-block partial K on the upper tile triangle, summed in block
-order by a second kernel (no float atomics: repeat calls are bitwise
-equal).
+about it (``csrc/df_wk.cuh``): one streaming pass over B by asynchronous
+copies into a ring of tiles; W_p^T = B[p] C accumulated on FP64 tensor-core
+tiles (``mma.sync.m16n8k4``) in registers over the whole k range, written
+to shared memory once per aux row, never as [naux, nocc, nao] to device
+memory; K on tensor-core tiles of the upper triangle, kept in registers
+for a block's whole aux range where it fits (phenoxyl), else in a
+per-block partial in device memory; partials summed in block order by a
+second kernel (no float atomics: repeat calls are bitwise equal).
+``ops/plan.py::wk_plan`` chooses the plan; f32 calls, and f64 shapes whose
+W_p does not fit in shared memory, run the FMA kernel of the same file.
 
 UHF/UKS call it once per spin, each with its own nocc; a Cocc of zero
 columns (the beta spin of a one-electron system) gives K = 0.
@@ -31,10 +36,13 @@ from __future__ import annotations
 import torch
 
 from cctpu_torch.ops import build as _build
+from cctpu_torch.ops import plan as _plan
 
 # kernel launches on the card since import (one per df_k_fast call that
 # reached the kernel); chip_smoke.py resets and reads it
 LAUNCHES = 0
+# the plan (ops/plan.py::wk_plan) of the last launch
+LAST_PLAN = None
 _LIB = None
 
 
@@ -49,7 +57,8 @@ def build():
     global _LIB
     if _LIB is None:
         lib = _build.load("df_k")
-        _build.bind(lib, ("df_k_f64", "df_k_f32"), 2, 5, 4)
+        _build.bind(lib, ("df_k_f64", "df_k_f32"), 2,
+                    5 + len(_plan.PLAN_INTS) + 1, 4)
         _LIB = lib
     return _LIB
 
@@ -58,7 +67,7 @@ def df_k_fast(B, Cocc):
     """Exchange matrix of the DF factor B [naux, nao, nao] for the
     occupied factor Cocc [nao, nocc] (columns carry sqrt(occupation)).
     CPU tensors: plain torch. CUDA tensors: the Hopper kernel, or raise."""
-    global LAUNCHES
+    global LAUNCHES, LAST_PLAN
     if B.device.type == "cpu" and Cocc.device.type == "cpu":
         return df_k_reference(B, Cocc)
     _build.check_inputs("df_k_fast", {"B": B, "Cocc": Cocc})
@@ -72,18 +81,20 @@ def df_k_fast(B, Cocc):
     naux, nao, _ = B.shape
     nocc = Cocc.shape[1]
     nblk, rows = _build.blocks(naux, B.device)
-    Kw = torch.empty((nblk, nao, nao), dtype=B.dtype, device=B.device)
-    # one aux row's W_p per block, padded to the kernel's 4x4 micro-tiles
-    Ws = torch.empty((nblk, -(-nocc // 4) * 4, -(-nao // 4) * 4),
-                     dtype=B.dtype, device=B.device)
+    plan = _plan.wk_plan(nao, nocc, B.element_size(),
+                         _build.smem_cap(B.device), False)
+    _, Kw, Ws = _plan.workspaces(plan, nblk, naux, B)
     K = torch.empty((nao, nao), dtype=B.dtype, device=B.device)
     fn = lib.df_k_f64 if B.dtype == torch.float64 else lib.df_k_f32
+    vec16 = int(nao % 2 == 0 and B.data_ptr() % 16 == 0)
     with torch.cuda.device(B.device):
         stream = torch.cuda.current_stream(B.device).cuda_stream
         err = fn(B.data_ptr(), Cocc.data_ptr(), naux, nao, nocc, nblk, rows,
-                 Kw.data_ptr(), Ws.data_ptr(), K.data_ptr(), stream)
+                 *_plan.plan_ints(plan), vec16, Kw.data_ptr(),
+                 _plan.ptr(Ws), K.data_ptr(), stream)
     if err != 0:
         raise RuntimeError("df_k_fast launch failed: "
                            + lib.df_error_string(err).decode())
     LAUNCHES += 1
+    LAST_PLAN = plan
     return K

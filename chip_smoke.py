@@ -7,11 +7,15 @@ Run from the root of a checkout. Phases, one printed line or more each:
 
 0. the card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
 1. build the three hand-written CUDA kernels (one nvcc per source, all
-   started together, into build/cctpu_torch/);
+   started together, into build/cctpu_torch/), and count the FP64
+   tensor-core instructions (DMMA) in the SASS of the two W/K libraries;
 2. the fused DF-J/K kernel against its plain torch version on the card at
    cctpu's three Pallas test shapes and at phenol's shape, in f64 (<= 1e-12
-   relative max error) and f32 (<= 1e-5), repeat calls bitwise equal, and
-   kernel vs plain median times at phenol's shape (f64, CUDA events);
+   relative max error) and f32 (<= 1e-5), and in f64 at an odd nao and at a
+   C32H66-sized row (the plan whose W_p fits no shared memory), repeat
+   calls bitwise equal, and kernel vs plain median times at phenol's shape
+   (f64, CUDA events) with the launch plan (ops/plan.py) and the ptxas
+   report of the f64 tensor-core instantiations;
 2a. the DF-J kernel (one and two densities) and the DF-K kernel against
    their plain versions at the same shapes and at C16H34's, f64 (<= 1e-12)
    and f32 (<= 1e-5), repeats bitwise equal, a zero Cocc column giving
@@ -81,6 +85,9 @@ PHENOXYL = PHENOL.replace(H_ATOM + "; ", "")
 # purpose) and phenol/6-31G*; the J and K kernels also at C16H34/6-31G*
 KERNEL_SHAPES = [(96, 32, 8), (37, 16, 3), (83, 24, 5), (1770, 110, 25)]
 C16H34_SHAPE = (6038, 292, 65)
+# f64 only: an odd nao (8-byte copies), and a C32H66-sized row with few aux
+# rows (neither B[p] nor W_p fits in shared memory: the FMA plan)
+F64_SHAPES = [(61, 15, 4), (150, 600, 129)]
 TOL = {"float64": 1e-12, "float32": 1e-5}
 
 # the card's peaks for the f64 bounds (NVIDIA H100 SXM data sheet, dense
@@ -215,6 +222,14 @@ def rel_err(x, ref):
     return float((x - ref).abs().max() / ref.abs().max())
 
 
+def wk_report(module, lib: str) -> dict:
+    """The plan of ``module``'s last launch and the ptxas registers and
+    spills of the f64 tensor-core instantiations of library ``lib``."""
+    from cctpu_torch.ops import build
+    return {"plan": module.LAST_PLAN,
+            "ptxas_f64": build.ptxas_report(lib, "wk_mma")}
+
+
 def ops():
     from cctpu_torch.ops import df_j, df_jk, df_k
     return {"df_jk_fused": df_jk, "df_j": df_j, "df_k": df_k}
@@ -233,9 +248,12 @@ def phase_kernel(df_jk, dev):
     """Kernel vs plain torch at the four shapes; returns phenol numbers."""
     import torch
     out = {}
-    for naux, nao, nocc in KERNEL_SHAPES:
+    for naux, nao, nocc in KERNEL_SHAPES + F64_SHAPES:
         for dtype in (torch.float64, torch.float32):
-            B, D, C = jk_inputs(naux, nao, nocc, naux, dtype, dev)
+            if (naux, nao, nocc) in F64_SHAPES and dtype != torch.float64:
+                continue
+            make = device_inputs if nao >= 600 else jk_inputs
+            B, D, C = make(naux, nao, nocc, naux, dtype, dev)
             J, K = df_jk.df_jk_fused(B, D, C)
             J2, K2 = df_jk.df_jk_fused(B, D, C)
             Jr, Kr = df_jk.df_jk_reference(B, D, C)
@@ -247,7 +265,7 @@ def phase_kernel(df_jk, dev):
             emit({"phase": "kernel", "shape": [naux, nao, nocc],
                   "dtype": name, "rel_err_J": ej, "rel_err_K": ek,
                   "max_abs_err": max_abs, "bitwise_repeat": bitwise,
-                  "tol": TOL[name]})
+                  "tol": TOL[name], "plan": df_jk.LAST_PLAN["kind"]})
             check(max(ej, ek) <= TOL[name],
                   f"kernel disagrees at {naux}/{nao}/{nocc} {name}")
             check(bitwise, f"repeat calls differ at {naux}/{nao}/{nocc}")
@@ -261,7 +279,10 @@ def phase_kernel(df_jk, dev):
                 emit({"phase": "kernel_time", "shape": [naux, nao, nocc],
                       "dtype": name, "kernel_ms": out["kernel_ms_rounds"],
                       "plain_ms": out["plain_ms_rounds"],
-                      "bound_ms": out["bound_ms"]})
+                      "bound_ms": out["bound_ms"],
+                      **wk_report(df_jk, "df_jk_fused")})
+            del B, D, C, J, K, J2, K2, Jr, Kr
+            torch.cuda.empty_cache()
     return out
 
 
@@ -270,11 +291,13 @@ def phase_kernel_j_k(dev):
     shapes, f64 and f32; kernel vs plain times at phenol's shape (f64)."""
     import torch
     from cctpu_torch.ops import df_j, df_k
-    for shape in KERNEL_SHAPES + [C16H34_SHAPE]:
+    for shape in KERNEL_SHAPES + F64_SHAPES + [C16H34_SHAPE]:
         naux, nao, nocc = shape
         for dtype in (torch.float64, torch.float32):
+            if shape in F64_SHAPES and dtype != torch.float64:
+                continue
             name = str(dtype).split(".")[-1]
-            make = device_inputs if shape == C16H34_SHAPE else jk_inputs
+            make = device_inputs if nao >= 292 else jk_inputs
             B, D, C = make(naux, nao, nocc, naux + 7, dtype, dev)
             D2 = torch.stack([D, D @ D / D.abs().max()])
             J1 = df_j.df_j_fast(B, D)
@@ -295,7 +318,8 @@ def phase_kernel_j_k(dev):
                     "rel_err_K": rel_err(K, Kr)}
             emit({"phase": "kernel_j_k", "shape": list(shape),
                   "dtype": name, **errs, "bitwise_repeat": bitwise,
-                  "k_of_zero_cocc_nonzeros": k_zero, "tol": TOL[name]})
+                  "k_of_zero_cocc_nonzeros": k_zero, "tol": TOL[name],
+                  "plan": df_k.LAST_PLAN["kind"]})
             check(max(errs.values()) <= TOL[name],
                   f"df_j/df_k disagree at {shape} {name}: {errs}")
             check(bitwise, f"df_j/df_k repeat calls differ at {shape}")
@@ -307,7 +331,7 @@ def phase_kernel_j_k(dev):
                                    lambda: df_k.df_k_reference(B, C), 10)
                 emit({"phase": "kernel_j_k_time", "shape": list(shape),
                       "dtype": name, "df_j_nset2_ms": tj,
-                      "df_k_ms": tk})
+                      "df_k_ms": tk, **wk_report(df_k, "df_k")})
             del B, D, C, D2, J1, J2, K, J1r, J2r, Kr
             torch.cuda.empty_cache()
 
@@ -405,7 +429,8 @@ def phase_phenoxyl(dev):
           "opt_einsum": torch.backends.opt_einsum.is_available(),
           "rel_err_K_library": rel_err(k_library(B, cocc[0]), Kr),
           "rel_err_J_per_spin": [rel_err(J[s], Jr[s]) for s in range(2)],
-          "max_abs_J": float(Jr.abs().max()), **out})
+          "max_abs_J": float(Jr.abs().max()), **out,
+          **wk_report(df_k, "df_k")})
     for name in ("df_j", "df_k"):
         check(out[name]["rel_err"] <= TOL["float64"],
               f"{name} disagrees at phenoxyl's tensors")
@@ -463,6 +488,7 @@ def phase_c16h34(dev):
     J, K = df_jk.df_jk_fused(B, dm, cocc)
     Jr, Kr = df_jk.df_jk_reference(B, dm, cocc)
     ej, ek = rel_err(J, Jr), rel_err(K, Kr)
+    plan_fused = df_jk.LAST_PLAN
     ej1 = rel_err(df_j.df_j_fast(B, dm), Jr)
     ek1 = rel_err(df_k.df_k_fast(B, cocc), Kr)
     del J, K, Jr, Kr
@@ -486,6 +512,8 @@ def phase_c16h34(dev):
           "df_j_nset2": {**tj, **bound(*work("df_j", naux, nao, nset=2))},
           "df_k": {**tk, **bound(*work("df_k", naux, nao, nocc))},
           "df_j_rel_err": ej1, "df_k_rel_err": ek1,
+          "plan_fused": plan_fused, "plan_df_k": df_k.LAST_PLAN,
+          "ptxas_f64": wk_report(df_jk, "df_jk_fused")["ptxas_f64"],
           "peak_mem_GB": torch.cuda.max_memory_allocated(dev) / 1e9})
     check(np.isfinite(e) and de <= 1e-6, f"C16H34 SAD |dE| {de:.3e} > 1e-6")
     check(max(ej, ek, ej1, ek1) <= 1e-12,
@@ -535,7 +563,13 @@ def main():
     ptxas = {name: [ln.strip() for ln in log.splitlines()
                     if "registers" in ln or "spill" in ln]
              for name, log in build.BUILD_LOGS.items()}
-    emit({"phase": "build", "seconds": time.time() - t0, "ptxas": ptxas})
+    # the W and K products of the f64 W/K kernels issue the FP64 tensor-core
+    # instruction (DMMA in the SASS of both libraries)
+    dmma = {name: build.sass_count(name, "DMMA")
+            for name in ("df_jk_fused", "df_k")}
+    emit({"phase": "build", "seconds": time.time() - t0, "ptxas": ptxas,
+          "sass_dmma": dmma})
+    check(min(dmma.values()) > 0, f"no DMMA in a W/K library: {dmma}")
 
     fused = phase_kernel(df_jk, dev)
     phase_kernel_j_k(dev)

@@ -55,6 +55,25 @@ def test_df_jk_matches_cctpu_pallas_interpret(shape):
     assert _rel(Kt.numpy(), Kp) < 1e-5
 
 
+def test_plain_versions_at_padding_shapes():
+    """An odd nao and nocc not a multiple of 8 (what the tensor-core tiles
+    pad), with a B that is not symmetric: the plain J/K and the plain K
+    against the four sums written out, W contracted over B's column index.
+    (One test for the three shapes: see ROADMAP queue 3 on the number of
+    collected tests.)"""
+    from cctpu_torch.ops import df_k
+    for shape in [(9, 61, 15), (7, 13, 5), (5, 24, 9)]:
+        B, D, C = _inputs(*shape, seed=shape[1])
+        tB, tD, tC = (torch.as_tensor(x) for x in (B, D, C))
+        J, K = df_jk.df_jk_reference(tB, tD, tC)
+        jp = (B * D[None]).sum(axis=(1, 2))
+        Kref = sum((B[p] @ C) @ (B[p] @ C).T for p in range(shape[0]))
+        assert not np.allclose(B[0], B[0].T)
+        assert _rel(J.numpy(), (jp[:, None, None] * B).sum(axis=0)) < 1e-13
+        assert _rel(K.numpy(), Kref) < 1e-13
+        assert _rel(df_k.df_k_reference(tB, tC).numpy(), Kref) < 1e-13
+
+
 def test_df_jk_fused_cpu_takes_plain_version():
     B, D, C = map(torch.as_tensor, _inputs(37, 16, 3, seed=5))
     before = df_jk.LAUNCHES

@@ -21,6 +21,14 @@ WATER = "O 0 0 0.1173; H 0 0.7572 -0.4692; H 0 -0.7572 -0.4692"
 # and a C32H66-sized row (nao 580 -> 600, nocc 129) with few aux rows: the
 # path where neither B[p] nor W_p fits in shared memory
 SHAPES = [(96, 32, 8), (37, 16, 3), (83, 24, 5), (150, 600, 129)]
+# an odd nao (8-byte copies), and both sides of each boundary of
+# ops/plan.py::wk_plan: K in registers or in device memory (nao 112 | 120),
+# the partial J in shared memory or J by a second pass (150 | 180), the
+# ring of tiles beside W_p or in its place (180 | 292), the tensor-core
+# kernel or the FMA one (292 | 330), one row panel or two (112/100, 360)
+PLAN_SHAPES = [(61, 15, 4), (40, 112, 20), (40, 120, 20), (30, 150, 20),
+               (30, 180, 40), (20, 292, 65), (20, 330, 80), (30, 112, 100),
+               (20, 360, 60)]
 
 
 @pytest.fixture
@@ -46,6 +54,10 @@ def _rel(x, ref):
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
                                        (torch.float32, 1e-5)])
 def test_kernel_matches_plain_on_card(dev, shape, dtype, tol):
+    _check_fused(dev, shape, dtype, tol)
+
+
+def _check_fused(dev, shape, dtype, tol):
     B, D, C = _inputs(*shape, shape[0], dtype, dev)
     before = df_jk.LAUNCHES
     J, K = df_jk.df_jk_fused(B, D, C)
@@ -62,6 +74,26 @@ def test_kernel_matches_plain_on_card(dev, shape, dtype, tol):
 def test_df_j_k_match_plain_on_card(dev, shape, dtype, tol):
     """df_j_fast for one and two densities, df_k_fast, each against its
     plain twin; repeat calls bitwise equal; one launch per call."""
+    _check_j_k(dev, shape, dtype, tol)
+
+
+def test_kernels_match_plain_at_plan_boundaries(dev):
+    """The same checks at PLAN_SHAPES, f64 and f32, in one test (the number
+    of collected tests steers the CPU run's scheduling: ROADMAP queue 3);
+    and the FP64 tensor-core instructions' lane -> (row, column) layouts,
+    as csrc/mma_layout.cu documents them (m16n8k4 through df_wk.cuh's
+    mma1684), against torch.matmul."""
+    from cctpu_torch.ops import bench_mma
+    lib = bench_mma.load()
+    for mma_shape in bench_mma.SHAPES:
+        assert bench_mma.layout_error(lib, mma_shape, dev) < 1e-14
+    for shape in PLAN_SHAPES:
+        for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+            _check_fused(dev, shape, dtype, tol)
+            _check_j_k(dev, shape, dtype, tol)
+
+
+def _check_j_k(dev, shape, dtype, tol):
     B, D, C = _inputs(*shape, shape[0] + 1, dtype, dev)
     D2 = torch.stack([D, D @ D / D.abs().max()])
     before = (df_j.LAUNCHES, df_k.LAUNCHES)
