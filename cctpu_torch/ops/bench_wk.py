@@ -8,13 +8,20 @@ C16H34's shapes (random f64 inputs made on the card from a seed).
                                        [--profile]
 
 Prints the card's name and power limit, the ptxas report of the f64
-tensor-core instantiations, then one JSON line per kernel and shape:
+tensor-core instantiations and of the DF-J kernels, then one JSON line per
+kernel and shape (``df_j`` with two densities in f64, ``df_j_nset1`` with
+one, ``df_j_f32`` and ``df_j_f32_nset1`` in f32, each with the plan of
+ops/plan.py::j_plan that ran and a hash of its f64 result, so that two
+trees' results can be compared bit for bit, and the card time a call of
+each of its kernels takes, from a torch.profiler trace):
 milliseconds of two alternated rounds (plain, kernel, kernel, plain; each
 the median of ``--reps`` calls timed one by one with CUDA events, so the
 host's time before each launch is inside), the library call's, the bound,
 and ``queued_ms`` / ``host_ms``: the card's and the host's time a call
 when many are queued back to back. ``--check`` only builds and holds every
-kernel against its plain version once, printing the plans that ran.
+kernel against its plain version once, printing the plans that ran; for
+``df_j`` at every shape of chip_smoke.py (KERNEL_SHAPES, F64_SHAPES,
+C16H34_SHAPE), f64 and f32, one and two densities, repeat calls bitwise.
 
 For tuning ops/plan.py: ``--staging`` puts one (kt, stages) first in the
 plan's STAGING order, ``--ring-min`` sets RING_BYTES_MIN (0: the ring of
@@ -29,6 +36,7 @@ in turns within one job on one card.
 """
 
 import argparse
+import hashlib
 import json
 import sys
 
@@ -46,6 +54,8 @@ except ImportError:          # a tree from before ops/plan.py
 PROFILE_PHASES = ("wait_copies", "barrier", "issue_copies", "w_products",
                   "jp_and_w_store", "row_barrier", "k_products",
                   "j_sweep_and_loop")
+# df_j.cu's kernels and the chunk/group sum they share with df_common.cuh
+DF_J_KERNELS = ("j_partial", "jp_pass", "partial_sum", "j_sweep")
 SHAPES = {"phenol": (1770, 110, 25), "phenoxyl": (1671, 108, 25),
           "c16h34": (6038, 292, 65)}
 
@@ -106,6 +116,9 @@ def main(argv=None):
         for lib in ("df_jk_fused", "df_k"):
             cs.emit({"ptxas": lib,
                      "wk_mma": build.ptxas_report(lib, "wk_mma")})
+        cs.emit({"ptxas": "df_j", "kernels": build.ptxas_report("df_j", "")})
+    if args.check:
+        check_df_j(dev)
     names = list(SHAPES) if args.shapes == "all" else args.shapes.split(",")
     for name in names:
         naux, nao, nocc = SHAPES[name]
@@ -136,6 +149,7 @@ def main(argv=None):
         del J, K, Jr, Kr, K1
         if args.check:
             continue
+        B32, D32 = B.float(), D2.float()
         rows = {
             "df_jk_fused": (lambda: df_jk.df_jk_fused(B, D, C),
                             lambda: df_jk.df_jk_reference(B, D, C), None,
@@ -147,15 +161,90 @@ def main(argv=None):
             "df_j": (lambda: df_j.df_j_fast(B, D2),
                      lambda: df_j.df_j_reference(B, D2),
                      lambda: torch.einsum("pij,sij,pkl->skl", B, D2, B),
-                     cs.work("df_j", naux, nao, nset=2))}
+                     cs.work("df_j", naux, nao, nset=2)),
+            "df_j_nset1": (lambda: df_j.df_j_fast(B, D),
+                           lambda: df_j.df_j_reference(B, D),
+                           lambda: torch.einsum("pij,ij,pkl->kl", B, D, B),
+                           cs.work("df_j", naux, nao, nset=1)),
+            "df_j_f32": (lambda: df_j.df_j_fast(B32, D32),
+                         lambda: df_j.df_j_reference(B32, D32),
+                         lambda: torch.einsum("pij,sij,pkl->skl", B32, D32,
+                                              B32),
+                         half(cs.work("df_j", naux, nao, nset=2))),
+            "df_j_f32_nset1": (lambda: df_j.df_j_fast(B32, D32[0]),
+                               lambda: df_j.df_j_reference(B32, D32[0]),
+                               lambda: torch.einsum("pij,ij,pkl->kl", B32,
+                                                    D32[0], B32),
+                               half(cs.work("df_j", naux, nao, nset=1)))}
         for kern, (k, p, lib, w) in rows.items():
+            extra = {}
+            if kern == "df_j" or kern.startswith("df_j_"):
+                out = k()
+                torch.cuda.synchronize()
+                extra = {"plan": getattr(df_j, "LAST_PLAN", None),
+                         "rel_err": cs.rel_err(out, p()),
+                         "sha256_16": hashlib.sha256(
+                             out.cpu().numpy().tobytes()).hexdigest()[:16],
+                         "traced_ms": traced_ms(k, reps)}
+                del out
             t = cs.alternated_ms(k, p, reps, library=lib)
             t["queued_ms"], t["host_ms"] = queued_ms(k, 4 * reps)
             cs.emit({"shape": name, "dims": [naux, nao, nocc],
-                     "kernel": kern, **t, **cs.bound(*w)})
-        del B, D, C, D2
+                     "kernel": kern, **t, **cs.bound(*w), **extra})
+        del B, D, C, D2, B32, D32
         torch.cuda.empty_cache()
     return 0
+
+
+def traced_ms(fn, n: int) -> dict:
+    """Card milliseconds a call spends in each of df_j's kernels, from a
+    torch.profiler trace of n calls (empty where the trace holds no device
+    time)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0))
+        for name in DF_J_KERNELS:
+            if us and f"{name}<" in ev.key:
+                out[name] = out.get(name, 0.0) + us / n / 1e3
+    return out
+
+
+def half(work):
+    """(bytes, flops) of an f32 call: half the f64 bytes."""
+    return work[0] / 2, work[1]
+
+
+def check_df_j(dev):
+    """df_j against its plain version at chip_smoke.py's kernel shapes, f64
+    and f32, one and two densities; repeat calls bitwise equal."""
+    for naux, nao, nocc in cs.KERNEL_SHAPES + cs.F64_SHAPES \
+            + [cs.C16H34_SHAPE]:
+        for dtype in (torch.float64, torch.float32):
+            B, D, _ = cs.device_inputs(naux, nao, nocc, naux + 3, dtype, dev)
+            D2 = torch.stack([D, D @ D / D.abs().max()])
+            for dm in (D, D2):
+                J = df_j.df_j_fast(B, dm)
+                plan_j = getattr(df_j, "LAST_PLAN", None)
+                same = bool(torch.equal(J, df_j.df_j_fast(B, dm)))
+                err = cs.rel_err(J, df_j.df_j_reference(B, dm))
+                tol = cs.TOL[str(dtype).split(".")[-1]]
+                cs.emit({"check": "df_j", "shape": [naux, nao],
+                         "dtype": str(dtype), "nset": dm.shape[0]
+                         if dm.ndim == 3 else 1, "rel_err": err,
+                         "bitwise_repeat": same, "plan": plan_j})
+                if err > tol or not same:
+                    raise RuntimeError(f"bench_wk: df_j fails at {naux}/"
+                                       f"{nao} {dtype}")
+            del B, D, D2, J
+            torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -17,6 +17,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from cctpu_torch.ops import plan as _plan
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cctpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -145,9 +147,8 @@ def ptxas_report(name: str, match: str) -> list:
 def blocks(naux: int, device) -> tuple:
     """(nblk, rows per block): one contiguous aux range per SM at most."""
     import torch
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    rows = -(-naux // min(naux, sms))
-    return -(-naux // rows), rows
+    return _plan.blocks(
+        naux, torch.cuda.get_device_properties(device).multi_processor_count)
 
 
 def check_inputs(fn: str, tensors: dict) -> None:

@@ -1,7 +1,9 @@
-"""The launch plan of the DF-W/K device code (``csrc/df_wk.cuh``).
+"""The launch plans of the DF kernels: ``wk_plan`` for the DF-W/K device
+code (``csrc/df_wk.cuh``), ``j_plan`` for the DF-J kernels
+(``csrc/df_j.cu``; see ``j_plan``'s docstring).
 
-``wk_plan`` is the one place where a plan is chosen: a pure function of
-the shape, the element size, the shared-memory cap and whether the
+``wk_plan`` is the one place where a W/K plan is chosen: a pure function
+of the shape, the element size, the shared-memory cap and whether the
 Coulomb pass is fused in. The wrappers (``ops/df_jk.py``, ``ops/df_k.py``)
 pass its integers to the C entry, which recomputes the shared-memory
 bytes from them and refuses a plan that is inconsistent or over the cap
@@ -73,6 +75,13 @@ PLAN_INTS = ("kind", "variant", "kt", "stages", "wm", "mt_panel",
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def blocks(naux: int, sms: int) -> tuple:
+    """(nblk, rows per block) of the kernels that give each block one
+    contiguous range of aux rows: one range per SM at most."""
+    rows = _cdiv(naux, min(naux, sms))
+    return _cdiv(naux, rows), rows
 
 
 def _fma_plan(nao, nocc, itemsize, smem_cap):
@@ -236,3 +245,78 @@ def workspaces(plan: dict, nblk: int, naux: int, like):
 def ptr(t) -> int:
     """The device pointer of a workspace that may be absent."""
     return 0 if t is None else t.data_ptr()
+
+
+# df_j.cu's launch constants: the one-pass kernel's block (dfc::kThreads);
+# the two-pass kernels' block, the bytes of B a jp_pass thread reads from
+# each aux row (kJpBytes: 8 doubles or 16 floats), the aux rows of one
+# jp_pass block, the most row groups the J sweep splits naux into, and the
+# J sweep's blocks per SM below which it splits (at C16H34 one group is 167
+# blocks of 256 threads, too few warps an SM to keep B's loads in flight)
+J_ONE_PASS_THREADS = 512
+J_THREADS = 256
+J_JP_BYTES = 64
+J_GROUP_ROWS = 128
+J_SWEEP_MAX_GROUPS = 8
+J_SWEEP_FILL = 2
+SMS_H100 = 132
+# the order of the plan integers in df_j.cu's C entries
+J_PLAN_INTS = ("kind", "nblk", "rows", "threads", "nchunk",
+               "sweep_groups", "sweep_rows", "vec")
+
+
+def j_plan(naux: int, nao: int, nset: int, itemsize: int, smem_cap: int,
+           sms: int = SMS_H100, aligned: bool = True) -> dict:
+    """The plan of one ``df_j_fast`` call for B [naux, nao, nao] and
+    ``nset`` densities of ``itemsize`` bytes an element, on a card of
+    ``sms`` SMs whose blocks may use ``smem_cap`` bytes of shared memory;
+    ``aligned``: B and D start at multiples of 16 bytes.
+
+    ``one_pass`` where the partial J of all densities fits in shared memory
+    beside the block sum (itemsize * nset * (512 + nao^2) <= smem_cap):
+    ``j_partial``, ``nblk`` blocks of ``rows`` contiguous aux rows each
+    (one range per SM at most), then the block partials summed in block
+    order; workspace: the partials, [nblk, nset, nao, nao].
+    ``two_pass`` elsewhere: ``jp_pass`` on ``nchunk`` column chunks x
+    ``nblk`` groups of ``rows`` aux rows (jp partials [nchunk, nset,
+    naux], summed in chunk order into jp [nset, naux]), then ``j_sweep``
+    over ``sweep_groups`` groups of ``sweep_rows`` aux rows (their partial J,
+    [sweep_groups, nset, nao, nao], summed in group order) where one
+    group would have fewer than J_SWEEP_FILL blocks an SM. ``vec``
+    elements a load: 16 bytes where every row of B starts 16-byte aligned
+    (nao even), else one."""
+    if naux < 1 or nao < 1 or nset not in (1, 2) or itemsize not in (4, 8) \
+            or sms < 1:
+        raise ValueError(f"j_plan: naux {naux}, nao {nao}, nset {nset}, "
+                         f"itemsize {itemsize}, sms {sms}")
+    n2 = nao * nao
+    if itemsize * nset * (J_ONE_PASS_THREADS + n2) <= smem_cap:
+        nblk, rows = blocks(naux, sms)
+        return {"kind": "one_pass", "nblk": nblk,
+                "rows": rows, "threads": J_ONE_PASS_THREADS, "nchunk": 0,
+                "sweep_groups": 0, "sweep_rows": 0, "vec": 1,
+                "sweep_blocks": 0,
+                "smem_bytes": itemsize * nset * (J_ONE_PASS_THREADS + n2),
+                "ws_elems": nblk * nset * n2}
+    vec = 16 // itemsize if nao % 2 == 0 and aligned else 1
+    chunk = J_THREADS * J_JP_BYTES // itemsize
+    nchunk = _cdiv(n2, chunk)
+    rows = min(naux, J_GROUP_ROWS)
+    sweep_blocks = _cdiv(n2 // vec, J_THREADS)
+    groups = min(J_SWEEP_MAX_GROUPS, naux,
+                 _cdiv(J_SWEEP_FILL * sms, sweep_blocks))
+    sweep_rows = _cdiv(naux, groups)
+    groups = _cdiv(naux, sweep_rows)
+    return {"kind": "two_pass", "nblk": _cdiv(naux, rows),
+            "rows": rows, "threads": J_THREADS, "nchunk": nchunk,
+            "sweep_groups": groups, "sweep_rows": sweep_rows, "vec": vec,
+            "sweep_blocks": sweep_blocks, "smem_bytes": 0,
+            "ws_elems": (nchunk + 1) * nset * naux
+            + (groups * nset * n2 if groups > 1 else 0)}
+
+
+def j_plan_ints(plan: dict) -> tuple:
+    """The plan as the integers df_j.cu's C entries take, in J_PLAN_INTS
+    order (kind: 1 for ``two_pass``)."""
+    return tuple(int(plan[k] == "two_pass") if k == "kind" else plan[k]
+                 for k in J_PLAN_INTS)

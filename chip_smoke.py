@@ -16,23 +16,24 @@ Run from the root of a checkout. Phases, one printed line or more each:
    calls bitwise equal, and kernel vs plain median times at phenol's shape
    (f64, CUDA events) with the launch plan (ops/plan.py) and the ptxas
    report of the f64 tensor-core instantiations;
-2a. the DF-J kernel (one and two densities) and the DF-K kernel against
+2a. the DF-J kernels (one and two densities) and the DF-K kernel against
    their plain versions at the same shapes and at C16H34's, f64 (<= 1e-12)
    and f32 (<= 1e-5), repeats bitwise equal, a zero Cocc column giving
-   K = 0, kernel and plain times (alternated) at phenol's shape;
+   K = 0, df_j's plan (ops/plan.py::j_plan: one pass, or at C16H34 two),
+   kernel and plain times (alternated) at phenol's shape;
 3. phenol DF-B3LYP/6-31G* (grid level 2, conv_tol 1e-10) through the Python
    API, against cctpu's host-f64 oracle (|dE| <= 1e-8 Ha), with the
    kernels' launch counts reset before and read after the SCF;
 3b. the phenoxyl radical DF-UB3LYP/6-31G* (phenol without the hydroxyl H,
    spin 1) against its oracle (<= 1e-8 Ha), <S^2>, DF-J launched every
-   cycle, DF-K twice a cycle, the fused kernel never; DF-J and DF-K timed
-   at this SCF's own tensors;
+   cycle (its one-pass plan), DF-K twice a cycle, the fused kernel never;
+   DF-J and DF-K timed at this SCF's own tensors;
 3c. the H atom UB3LYP/6-31G* at the removed H's position (nbeta 0)
    against its oracle, and the phenol O-H bond dissociation energy;
 3d. phenol DF-BLYP/6-31G* (pure GGA: J without K) against its oracle;
 4. C16H34/6-31G*: energy of the unrelaxed SAD density from one Fock build
-   against cctpu's oracle (<= 1e-6 Ha); J/K, J and K call times at this
-   shape;
+   against cctpu's oracle (<= 1e-6 Ha); J/K, J (two densities and one,
+   DF-J's two-pass plan) and K call times at this shape;
 5. the ``energy`` CLI on phenol's SMILES with ``--density-fit``;
 5b. the ``energy`` CLI on the phenoxyl radical with ``--spin 1``.
 
@@ -301,7 +302,9 @@ def phase_kernel_j_k(dev):
             B, D, C = make(naux, nao, nocc, naux + 7, dtype, dev)
             D2 = torch.stack([D, D @ D / D.abs().max()])
             J1 = df_j.df_j_fast(B, D)
+            plan_j = [df_j.LAST_PLAN["kind"]]
             J2 = df_j.df_j_fast(B, D2)
+            plan_j.append(df_j.LAST_PLAN["kind"])
             K = df_k.df_k_fast(B, C)
             bitwise = bool(torch.equal(J1, df_j.df_j_fast(B, D))
                            and torch.equal(J2, df_j.df_j_fast(B, D2))
@@ -319,7 +322,7 @@ def phase_kernel_j_k(dev):
             emit({"phase": "kernel_j_k", "shape": list(shape),
                   "dtype": name, **errs, "bitwise_repeat": bitwise,
                   "k_of_zero_cocc_nonzeros": k_zero, "tol": TOL[name],
-                  "plan": df_k.LAST_PLAN["kind"]})
+                  "plan": df_k.LAST_PLAN["kind"], "plan_df_j": plan_j})
             check(max(errs.values()) <= TOL[name],
                   f"df_j/df_k disagree at {shape} {name}: {errs}")
             check(bitwise, f"df_j/df_k repeat calls differ at {shape}")
@@ -398,6 +401,8 @@ def phase_phenoxyl(dev):
     check(n["df_j"] >= mf.n_cycles and n["df_k"] >= 2 * mf.n_cycles
           and n["df_jk_fused"] == 0,
           f"phenoxyl launches {n} in {mf.n_cycles} cycles")
+    check(df_j.LAST_PLAN["kind"] == "one_pass",
+          f"phenoxyl's SCF ran df_j's {df_j.LAST_PLAN['kind']} plan")
 
     B = mf._jk.B
     dm = mf.dm.contiguous()
@@ -454,6 +459,7 @@ def phase_h_atom(dev, e_phenol, e_phenoxyl):
 
 def phase_phenol_blyp(dev):
     from cctpu_torch.dft.rks import RKS
+    from cctpu_torch.ops import df_j
     mf, e, info = run_scf(RKS, PHENOL, dev, xc="blyp")
     de = abs(e - PHENOL_BLYP_E_CONV)
     n = info["launches"]
@@ -463,6 +469,8 @@ def phase_phenol_blyp(dev):
     check(n["df_j"] >= mf.n_cycles and n["df_k"] == 0
           and n["df_jk_fused"] == 0,
           f"phenol BLYP launches {n} in {mf.n_cycles} cycles")
+    check(df_j.LAST_PLAN["kind"] == "one_pass",
+          f"phenol BLYP's SCF ran df_j's {df_j.LAST_PLAN['kind']} plan")
 
 
 def phase_c16h34(dev):
@@ -490,6 +498,7 @@ def phase_c16h34(dev):
     ej, ek = rel_err(J, Jr), rel_err(K, Kr)
     plan_fused = df_jk.LAST_PLAN
     ej1 = rel_err(df_j.df_j_fast(B, dm), Jr)
+    plan_j = df_j.LAST_PLAN
     ek1 = rel_err(df_k.df_k_fast(B, cocc), Kr)
     del J, K, Jr, Kr
     k1 = cuda_ms(lambda: df_jk.df_jk_fused(B, dm, cocc), 3)
@@ -499,6 +508,11 @@ def phase_c16h34(dev):
                        lambda: df_j.df_j_reference(B, dm2), 3,
                        library=lambda: torch.einsum("pij,sij,pkl->skl",
                                                     B, dm2, B))
+    plan_j2 = df_j.LAST_PLAN
+    tj1 = alternated_ms(lambda: df_j.df_j_fast(B, dm),
+                        lambda: df_j.df_j_reference(B, dm), 3,
+                        library=lambda: torch.einsum("pij,ij,pkl->kl",
+                                                     B, dm, B))
     tk = alternated_ms(lambda: df_k.df_k_fast(B, cocc),
                        lambda: df_k.df_k_reference(B, cocc), 3,
                        library=lambda: k_library(B, cocc))
@@ -510,6 +524,8 @@ def phase_c16h34(dev):
                                      nocc))["bound_ms"],
           "kernel_rel_err_J": ej, "kernel_rel_err_K": ek,
           "df_j_nset2": {**tj, **bound(*work("df_j", naux, nao, nset=2))},
+          "df_j_nset1": {**tj1, **bound(*work("df_j", naux, nao, nset=1))},
+          "plan_df_j": plan_j2, "plan_df_j_nset1": plan_j,
           "df_k": {**tk, **bound(*work("df_k", naux, nao, nocc))},
           "df_j_rel_err": ej1, "df_k_rel_err": ek1,
           "plan_fused": plan_fused, "plan_df_k": df_k.LAST_PLAN,
@@ -518,6 +534,8 @@ def phase_c16h34(dev):
     check(np.isfinite(e) and de <= 1e-6, f"C16H34 SAD |dE| {de:.3e} > 1e-6")
     check(max(ej, ek, ej1, ek1) <= 1e-12,
           "a kernel disagrees at the C16H34 shape")
+    check(plan_j["kind"] == plan_j2["kind"] == "two_pass",
+          f"C16H34 ran df_j's {plan_j['kind']}/{plan_j2['kind']} plans")
 
 
 def phase_cli(smiles, extra, tag, need):

@@ -25,10 +25,14 @@ SHAPES = [(96, 32, 8), (37, 16, 3), (83, 24, 5), (150, 600, 129)]
 # ops/plan.py::wk_plan: K in registers or in device memory (nao 112 | 120),
 # the partial J in shared memory or J by a second pass (150 | 180), the
 # ring of tiles beside W_p or in its place (180 | 292), the tensor-core
-# kernel or the FMA one (292 | 330), one row panel or two (112/100, 360)
+# kernel or the FMA one (292 | 330), one row panel or two (112/100, 360);
+# and of ops/plan.py::j_plan, df_j's one pass or two (f64: nao 118 | 119
+# for two densities, 168 | 169 for one; f32: 168 | 169 for two, 240 | 241
+# for one), with an aux count that leaves partial row groups
 PLAN_SHAPES = [(61, 15, 4), (40, 112, 20), (40, 120, 20), (30, 150, 20),
                (30, 180, 40), (20, 292, 65), (20, 330, 80), (30, 112, 100),
-               (20, 360, 60)]
+               (20, 360, 60), (133, 118, 20), (133, 119, 20), (21, 168, 30),
+               (21, 169, 30), (13, 240, 40), (13, 241, 40)]
 
 
 @pytest.fixture
@@ -83,7 +87,11 @@ def test_kernels_match_plain_at_plan_boundaries(dev):
     and the FP64 tensor-core instructions' lane -> (row, column) layouts,
     as csrc/mma_layout.cu documents them (m16n8k4 through df_wk.cuh's
     mma1684), against torch.matmul."""
+    from pathlib import Path
+
     from cctpu_torch.ops import bench_mma
+    src = Path(df_j.__file__).parent / "csrc" / "df_j.cu"
+    assert "atomicAdd" not in src.read_text()       # no float atomics
     lib = bench_mma.load()
     for mma_shape in bench_mma.SHAPES:
         assert bench_mma.layout_error(lib, mma_shape, dev) < 1e-14
@@ -97,7 +105,14 @@ def _check_j_k(dev, shape, dtype, tol):
     B, D, C = _inputs(*shape, shape[0] + 1, dtype, dev)
     D2 = torch.stack([D, D @ D / D.abs().max()])
     before = (df_j.LAUNCHES, df_k.LAUNCHES)
-    J, J2 = df_j.df_j_fast(B, D), df_j.df_j_fast(B, D2)
+    cap = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    J = df_j.df_j_fast(B, D)
+    kinds = [df_j.LAST_PLAN["kind"]]
+    J2 = df_j.df_j_fast(B, D2)
+    kinds.append(df_j.LAST_PLAN["kind"])
+    # one pass exactly where the partial J of nset densities fits on chip
+    assert kinds == ["one_pass" if B.element_size() * nset * (
+        512 + shape[1] ** 2) <= cap else "two_pass" for nset in (1, 2)]
     K = df_k.df_k_fast(B, C)
     assert torch.equal(J2, df_j.df_j_fast(B, D2))
     assert torch.equal(K, df_k.df_k_fast(B, C))

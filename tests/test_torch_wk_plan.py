@@ -1,10 +1,13 @@
-"""The launch plan of the DF-W/K kernels (cctpu_torch/ops/plan.py::wk_plan),
-the one part of them that runs without a card: every shape chip_smoke.py
-and tests/test_torch_gpu.py launch, both element sizes, with and without
-the fused Coulomb pass. Needs neither JAX nor a card."""
+"""The launch plans of the DF kernels (cctpu_torch/ops/plan.py::wk_plan for
+the W/K kernels, ::j_plan for DF-J), the one part of them that runs
+without a card: every shape chip_smoke.py and tests/test_torch_gpu.py
+launch, both element sizes, with and without the fused Coulomb pass, one
+and two densities. Needs neither JAX nor a card."""
 
 import pytest
+import torch
 
+from cctpu_torch.ops import df_j
 from cctpu_torch.ops import plan as P
 
 CAP = P.SMEM_CAP_H100
@@ -19,6 +22,13 @@ SHAPES = [(32, 8), (16, 3), (24, 5), (110, 25), (108, 25), (108, 24), (2, 1),
           (400, 40), (512, 24)]
 CASES = [(nao, nocc, size, with_j) for nao, nocc in SHAPES
          for size in (8, 4) for with_j in (True, False)]
+# df_j: both sides of each one_pass | two_pass boundary (f64: nao 168 for
+# one density, 118 for two; f32: 240 and 168), C16H34 and a C32H66-sized
+# row, odd nao, few and many aux rows
+J_SHAPES = [(naux, nao) for naux in (1, 20, 1671, 6038)
+            for nao in (2, 15, 118, 119, 168, 169, 240, 241, 292, 293, 600)]
+J_CASES = [(naux, nao, nset, size) for naux, nao in J_SHAPES
+           for nset in (1, 2) for size in (8, 4)]
 
 
 def test_every_plan_fits_and_is_consistent():
@@ -27,6 +37,48 @@ def test_every_plan_fits_and_is_consistent():
     cases are not parametrised."""
     for case in CASES:
         _check_plan(*case)
+    for case in J_CASES:
+        _check_j_plan(*case)
+
+
+def _check_j_plan(naux, nao, nset, size, sms=P.SMS_H100):
+    p = P.j_plan(naux, nao, nset, size, CAP, sms)
+    assert p == P.j_plan(naux, nao, nset, size, CAP, sms)     # pure
+    ints = P.j_plan_ints(p)
+    assert len(ints) == len(P.J_PLAN_INTS) and all(
+        isinstance(v, int) for v in ints)
+    n2 = nao * nao
+    # one_pass exactly where the partial J and the block sum fit
+    fits = size * nset * (512 + n2) <= CAP
+    assert p["kind"] == ("one_pass" if fits else "two_pass")
+    assert ints[0] == int(not fits)
+    # the workspace df_j.py allocates for the plan
+    assert df_j.workspace(p, torch.empty(0, dtype={8: torch.float64, 4:
+                          torch.float32}[size])).numel() == p["ws_elems"]
+    if fits:
+        assert p["threads"] == 512 and p["smem_bytes"] <= CAP
+        assert p["nblk"] <= min(naux, sms)
+        assert (p["nblk"] - 1) * p["rows"] < naux <= p["nblk"] * p["rows"]
+        # the blocking of the W/K kernels (build.blocks)
+        assert (p["nblk"], p["rows"]) == P.blocks(naux, sms)
+        assert p["ws_elems"] == p["nblk"] * nset * n2
+        return
+    assert p["threads"] % 32 == 0 and 32 <= p["threads"] <= 256
+    assert p["vec"] == (16 // size if nao % 2 == 0 else 1)
+    assert n2 % p["vec"] == 0
+    # jp_pass: column chunks of threads x 64 bytes, groups of aux rows
+    chunk = p["threads"] * 64 // size
+    assert (p["nchunk"] - 1) * chunk < n2 <= p["nchunk"] * chunk
+    assert (p["nblk"] - 1) * p["rows"] < naux <= p["nblk"] * p["rows"]
+    # the J sweep: a few row groups, and more than one only where one
+    # group's blocks number fewer than J_SWEEP_FILL an SM
+    g, rows = p["sweep_groups"], p["sweep_rows"]
+    assert 1 <= g <= P.J_SWEEP_MAX_GROUPS
+    assert (g - 1) * rows < naux <= g * rows
+    assert p["sweep_blocks"] * p["threads"] * p["vec"] >= n2
+    assert g == 1 or p["sweep_blocks"] * (g - 1) < P.J_SWEEP_FILL * sms
+    jsw = g * nset * n2 if g > 1 else 0
+    assert p["ws_elems"] == p["nchunk"] * nset * naux + nset * naux + jsw
 
 
 def _check_plan(nao, nocc, size, with_j):
@@ -104,3 +156,26 @@ def test_named_plans():
         P.wk_plan(600, 129, 8, 4096, True)
     with pytest.raises(ValueError, match="itemsize"):
         P.wk_plan(110, 25, 2, CAP, True)
+    # df_j: the shapes of every SCF phase of chip_smoke.py (phenoxyl's two
+    # densities, phenol BLYP's one, the H atom's) and its kernel shapes keep
+    # the one-pass kernel; C16H34 runs two passes, in f64 with 16-byte
+    # loads and the J sweep's 167 blocks in two row groups; the boundaries
+    for naux, nao, nset in [(1671, 108, 2), (1770, 110, 1), (9, 2, 2),
+                            (96, 32, 2), (37, 16, 2), (83, 24, 2),
+                            (1770, 110, 2), (61, 15, 2)]:
+        for size in (8, 4):
+            assert P.j_plan(naux, nao, nset, size, CAP)["kind"] == \
+                "one_pass"
+    p = P.j_plan(6038, 292, 2, 8, CAP)
+    assert (p["kind"], p["vec"], p["nchunk"], p["sweep_blocks"],
+            p["sweep_groups"]) == ("two_pass", 2, 42, 167, 2)
+    assert 8 * p["ws_elems"] < 8e6      # ~7 MB, not [nblk, 2, nao, nao]
+    assert P.j_plan(6038, 293, 1, 8, CAP)["vec"] == 1
+    assert P.j_plan(6038, 292, 2, 8, CAP, aligned=False)["vec"] == 1
+    for size, nset, last in ((8, 1, 168), (8, 2, 118), (4, 1, 240),
+                             (4, 2, 168)):
+        assert P.j_plan(100, last, nset, size, CAP)["kind"] == "one_pass"
+        assert P.j_plan(100, last + 1, nset, size, CAP)["kind"] == \
+            "two_pass"
+    with pytest.raises(ValueError, match="nset"):
+        P.j_plan(100, 50, 3, 8, CAP)
