@@ -16,6 +16,7 @@ import dataclasses
 from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
+import torch
 
 from cctpu_torch.core import elements as elem
 from cctpu_torch.core.basis import BasisSet, build_basis
@@ -127,12 +128,20 @@ class Molecule:
     # -- derived -------------------------------------------------------------
     def energy_nuc(self, coords: Optional[np.ndarray] = None) -> float:
         """Nuclear repulsion (numpy coords; a host float)."""
-        Z = self.charges
-        R = np.asarray(self.coords if coords is None else coords)
-        diff = R[:, None, :] - R[None, :, :]
-        dist = np.sqrt(np.sum(diff * diff, axis=-1) + np.eye(self.natm))
-        inv = (1.0 - np.eye(self.natm)) / dist
-        return float(0.5 * np.einsum("i,j,ij->", Z, Z, inv))
+        R = self.coords if coords is None else coords
+        return float(self.energy_nuc_t(torch.as_tensor(R,
+                                                       dtype=torch.float64)))
+
+    def energy_nuc_t(self, coords: torch.Tensor) -> torch.Tensor:
+        """Nuclear repulsion as a 0-d tensor of ``coords`` [natm, 3] (Bohr),
+        differentiable by autograd. The identity inside the sqrt keeps the
+        zero diagonal away from sqrt's infinite derivative at 0."""
+        eye = torch.eye(self.natm, dtype=coords.dtype, device=coords.device)
+        Z = torch.as_tensor(self.charges, dtype=coords.dtype,
+                            device=coords.device)
+        diff = coords[:, None, :] - coords[None, :, :]
+        dist = torch.sqrt(torch.sum(diff * diff, dim=-1) + eye)
+        return 0.5 * torch.einsum("i,j,ij->", Z, Z, (1.0 - eye) / dist)
 
     def build(self) -> "Molecule":
         self._basis_set = build_basis(self.element_symbols, self.coords,

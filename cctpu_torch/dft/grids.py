@@ -103,13 +103,19 @@ class Grids:
         a = uu / (uu ** 2 - 1)
         self._a_adjust = np.clip(a, -0.5, 0.5)
 
-    def build(self, coords: torch.Tensor):
-        """(points [npts, 3], weights [npts]) on ``coords``' device."""
+    def build(self, coords: torch.Tensor, start: int = 0,
+              stop: int = None):
+        """(points [n, 3], weights [n]) of the grid points ``start`` to
+        ``stop`` (all of them by default) on ``coords``' device. Both follow
+        ``coords`` under autograd: the points move with their atoms and the
+        Becke weights with every atom."""
         dev, dt = coords.device, coords.dtype
-        own = torch.as_tensor(self.point_atom, device=dev)
-        pts = torch.as_tensor(self.template_pts, dtype=dt,
+        stop = self.npts if stop is None else min(stop, self.npts)
+        own = torch.as_tensor(self.point_atom[start:stop], device=dev)
+        pts = torch.as_tensor(self.template_pts[start:stop], dtype=dt,
                               device=dev) + coords[own]
-        w0 = torch.as_tensor(self.template_wts, dtype=dt, device=dev)
+        w0 = torch.as_tensor(self.template_wts[start:stop], dtype=dt,
+                             device=dev)
         return pts, w0 * self._becke_weights(pts, coords, own)
 
     def _becke_weights(self, pts, coords, own):
@@ -125,7 +131,7 @@ class Grids:
         chunk = max(256, int(2e7) // (natm * natm))
         chunk = 1 << (chunk.bit_length() - 1)
         out = []
-        for s in range(0, self.npts, chunk):
+        for s in range(0, pts.shape[0], chunk):
             p = pts[s:s + chunk]
             d = torch.linalg.vector_norm(p[:, None, :] - coords[None], dim=-1)
             mu = (d[:, :, None] - d[:, None, :]) / R[None, :, :]

@@ -66,11 +66,24 @@ class _XCMixin:
         if self.func.xctype == "HF":
             return
         self.grids = Grids(self.mol, level=self.grid_level)
-        pts, w = self.grids.build(self.coords)
         # on the card the per-chunk XC is launch-bound (hundreds of small
         # elementwise kernels per chunk): 8x larger chunks there
-        chunk = self.grid_chunk * (8 if self.device.type == "cuda" else 1)
-        self._pts_chunks, self._w_chunks = _chunk_pts(pts, w, chunk)
+        self._chunk = self.grid_chunk * (8 if self.device.type == "cuda"
+                                         else 1)
+        chunks = [self._grid_chunk(self.coords, k)
+                  for k in range(-(-self.grids.npts // self._chunk))]
+        self._pts_chunks = torch.stack([p for p, _ in chunks])
+        self._w_chunks = torch.stack([w for _, w in chunks])
+
+    def _grid_chunk(self, coords, k: int):
+        """Points [chunk, 3] and weights [chunk] of grid chunk ``k`` at
+        ``coords``; the last chunk is padded. The SCF's chunks and the
+        gradient's are built here alike, so at the SCF's geometry they
+        agree bit for bit."""
+        pts, w = self.grids.build(coords, k * self._chunk,
+                                  (k + 1) * self._chunk)
+        pts, w = _chunk_pts(pts, w, self._chunk)
+        return pts[0], w[0]
 
     def _prepare_xc_f64(self):
         """Per-geometry f64 AO-value cache, when it fits (else each E_xc
@@ -120,6 +133,29 @@ class _XCMixin:
         t = torch.zeros_like(r[0])
         e = func.exc(r[0], r[1], saa, sab, sbb, t, t)
         return torch.sum(w * e)
+
+    def exc_of_coords(self, coords, dm):
+        """(E_xc[dm], dE_xc/dR [natm, 3]) with the grid rebuilt at
+        ``coords``: the derivatives of the grid points and of the Becke
+        weights are included (cctpu's ``exc_of_coords`` under
+        ``jax.grad``). The backward is taken chunk by chunk, each chunk's
+        points, weights and AO values built from the leaf ``coords``, so
+        memory stays at one chunk; the AO cache has no graph to the
+        coordinates and is not used."""
+        basis = self.mol.basis_set
+        dm = dm.detach()
+        leaf = coords.detach().requires_grad_(True)
+        exc = torch.zeros((), dtype=dm.dtype, device=dm.device)
+        grad = torch.zeros_like(leaf)
+        with torch.enable_grad():
+            for k in range(self._w_chunks.shape[0]):
+                pts, w = self._grid_chunk(leaf, k)
+                ao = eval_ao(basis, leaf, pts, deriv=1)
+                e = self._chunk_exc_from_ao(self.func, dm, ao, w)
+                g, = torch.autograd.grad(e, leaf)
+                exc = exc + e.detach()
+                grad = grad + g
+        return exc, grad
 
     def _exc_vxc(self, dm):
         """(E_xc, dE_xc/dD) by autograd, one chunk at a time; dm is

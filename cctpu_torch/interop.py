@@ -1,9 +1,10 @@
-"""State carried across from cctpu as plain numpy: basis, molecule, density.
+"""State carried across from cctpu as plain numpy: basis, molecule,
+density-fitting tensors and a converged SCF state.
 
 The state of this system is the basis and the density, not weights. These
 helpers build the port's objects from numpy data (as exported from the
-JAX package's ``BasisSet.shells``, ``Molecule`` and converged ``dm``), so
-the same basis, coordinates and starting density can be fed to both.
+JAX package's ``BasisSet.shells``, ``Molecule``, ``DFJK`` and a converged
+SCF), so both packages can be fed exactly the same inputs.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 from cctpu_torch.core.basis import BasisSet, Shell
 from cctpu_torch.core.molecule import Molecule
 from cctpu_torch.device import DTYPE, default_device
+from cctpu_torch.ints.df import DFJK
 
 
 def basis_from_numpy(shells: Iterable, coords_bohr: np.ndarray) -> BasisSet:
@@ -55,3 +57,27 @@ def dm_from_numpy(dm: np.ndarray,
     return torch.tensor(np.asarray(dm, dtype=np.float64), dtype=DTYPE,
                         device=default_device() if device is None
                         else device)
+
+
+def dfjk_from_numpy(aux_shells: Iterable, coords_bohr: np.ndarray,
+                    B: np.ndarray, Linv: np.ndarray,
+                    device: Optional[torch.device] = None) -> DFJK:
+    """The port's DF-J/K builder on given tensors: the aux basis from shell
+    data (as ``basis_from_numpy``), B [nkeep, nao, nao] and the metric
+    factor Linv [nkeep, naux] (M^+ = Linv^T Linv). Set it as an SCF's
+    ``_jk`` before ``kernel()`` to run the SCF and its gradient on them."""
+    return DFJK.from_tensors(basis_from_numpy(aux_shells, coords_bohr),
+                             dm_from_numpy(B, device), dm_from_numpy(Linv,
+                                                                     device))
+
+
+def set_scf_state(mf, dm: np.ndarray, mo_coeff: np.ndarray,
+                  mo_occ: np.ndarray, mo_energy: np.ndarray):
+    """Put a converged SCF state on the port's SCF object ``mf`` (on its
+    device): the density, orbitals, occupations and orbital energies that
+    the gradient reads. [2, ...] arrays for UHF/UKS."""
+    for name, x in (("dm", dm), ("mo_coeff", mo_coeff), ("mo_occ", mo_occ),
+                    ("mo_energy", mo_energy)):
+        setattr(mf, name, dm_from_numpy(x, mf.device))
+    mf.converged = True
+    return mf

@@ -21,8 +21,9 @@ import torch
 
 from cctpu_torch.core.basis import BasisSet, Shell, normalize_contraction, nsph
 from cctpu_torch.device import as_tensor
-from cctpu_torch.ints.two_electron import (class_chunk, eri_quartet_kernel,
-                                           pair_classes, schwarz_q)
+from cctpu_torch.ints.two_electron import (CHUNK_BUDGET, class_chunk,
+                                           eri_quartet_kernel, pair_classes,
+                                           schwarz_q)
 from cctpu_torch.ops.df_j import df_j_fast
 from cctpu_torch.ops.df_jk import df_jk_fused
 from cctpu_torch.ops.df_k import df_k_fast
@@ -72,123 +73,173 @@ def autoaux(basis: BasisSet, beta: float = 1.8, extra_l: int = 2,
     return BasisSet(aux_shells, atom_coords)
 
 
-class _AuxTables:
-    """One aux l-group's (exps, coefs, centers) on the device, plus the
-    dummy s-function (exponent 0, coefficient 1) that turns a 4-center
-    quartet kernel into a 2- or 3-center one."""
+# Schwarz screening threshold of the 3c2e walk: an AO pair is skipped when
+# Q_ab * max_P Q_P falls below it (|(P|ab)| <= Q_P Q_ab)
+SCREEN_TOL = 1e-12
 
-    def __init__(self, g, coords):
-        dev, dt = coords.device, coords.dtype
-        self.e = torch.as_tensor(g.exps, dtype=dt, device=dev)
-        self.c = torch.as_tensor(g.coefs, dtype=dt, device=dev)
-        self.xyz = coords[torch.as_tensor(g.atom_idx, device=dev)]
-        self.de = torch.zeros(1, dtype=dt, device=dev)
-        self.dc = torch.ones(1, dtype=dt, device=dev)
 
-    def bra(self, i):
-        """(eP, cP, P, e_dummy, c_dummy, P) for aux shells ``i``."""
-        n = len(i)
-        return (self.e[i], self.c[i], self.xyz[i],
-                self.de.expand(n, 1), self.dc.expand(n, 1), self.xyz[i])
+class _Shells:
+    """One l-group of shells on the device: exponents, coefficients, atoms
+    and first AOs. The centers are gathered from the coordinates each call
+    is given, so a chunk's centers follow them under autograd."""
+
+    def __init__(self, l, exps, coefs, atom, ao_start, dev, dt):
+        self.l = l
+        self.e = torch.as_tensor(exps, dtype=dt, device=dev)
+        self.c = torch.as_tensor(coefs, dtype=dt, device=dev)
+        self.atom = torch.as_tensor(atom, device=dev)
+        self.ao = torch.as_tensor(ao_start, device=dev)
+
+    @classmethod
+    def of_group(cls, l, g, dev, dt):
+        return cls(l, g.exps, g.coefs, g.atom_idx, g.ao_start, dev, dt)
+
+    def at(self, i, coords):
+        """(exps, coefs, centers) of shells ``i``."""
+        return self.e[i], self.c[i], coords[self.atom[i]]
+
+    def bra(self, i, coords):
+        """(eP, cP, P, e_dummy, c_dummy, P) of aux shells ``i``: the dummy
+        s-function (exponent 0, coefficient 1) turns the 4-center quartet
+        kernel into a 2- or 3-center one."""
+        e, c, xyz = self.at(i, coords)
+        return (e, c, xyz, torch.zeros_like(e[:, :1]),
+                torch.ones_like(c[:, :1]), xyz)
+
+    def rows(self, i):
+        """AO indices [len(i), 2l+1] of shells ``i``."""
+        return self.ao[i][:, None] + torch.arange(nsph(self.l),
+                                                  device=self.ao.device)
+
+
+def _aux_shells(aux: BasisSet, dev, dt):
+    return {l: _Shells.of_group(l, g, dev, dt) for l, g in aux.groups.items()}
 
 
 def _aux_schwarz_max(aux: BasisSet, coords) -> float:
     """max_P sqrt((P|P)) over the auxiliary set (screening bound)."""
     q_max = 1e-30
-    for lP in sorted(aux.groups):
-        tab = _AuxTables(aux.groups[lP], coords)
+    for lP, sh in _aux_shells(aux, coords.device, coords.dtype).items():
         i = torch.arange(len(aux.groups[lP].shell_idx), device=coords.device)
-        blk = eri_quartet_kernel((lP, 0, lP, 0), *tab.bra(i), *tab.bra(i))
+        blk = eri_quartet_kernel((lP, 0, lP, 0), *sh.bra(i, coords),
+                                 *sh.bra(i, coords))
         diag = torch.abs(torch.einsum("qaa->qa", blk[:, :, 0, :, 0]))
         q_max = max(q_max, float(torch.sqrt(diag.max())))
     return q_max
 
 
-def build_3c2e(basis: BasisSet, aux: BasisSet, coords,
-               screen_tol: float = 1e-12) -> torch.Tensor:
-    """(P|ab) tensor [naux, nao, nao] on ``coords``' device.
+def walk_3c2e(basis: BasisSet, aux: BasisSet, coords,
+              budget: int = CHUNK_BUDGET):
+    """The quartet-kernel chunks that make up (P|ab): one class per (aux
+    l-group, AO pair class), each AO pair once, with the pairs that the
+    Schwarz bound at ``coords`` puts below ``SCREEN_TOL`` skipped (cctpu's
+    production selection), cut into chunks of ``class_chunk(..., budget)``
+    quartets. The one walk of both ``build_3c2e`` and the nuclear gradient
+    (``grad/df_grad.py``), so the gradient differentiates the integrals the
+    SCF used.
 
-    One quartet-kernel batch per (aux l-group, AO pair class) chunk, then a
-    scatter of the blocks and their ab<->ba mirrors. AO pairs with
-    Q_ab * max_P Q_P below ``screen_tol`` are skipped (|(P|ab)| <=
-    Q_P Q_ab), the same Schwarz selection as cctpu's production builder."""
-    dev = coords.device
-    naux, nao = aux.nao, basis.nao
-    out = torch.zeros((naux, nao, nao), dtype=coords.dtype, device=dev)
+    Yields (ls, args, (P, A, B), mult): ``args(c)`` is the kernel's argument
+    tuple with the centers gathered from ``c``; P, A, B broadcast to the
+    AO indices [nq, sP, sa, sb] of the blocks ``kernel(...)[:, :, 0]``;
+    ``mult`` [nq] is 0.5 for a pair of one shell with itself, else 1."""
+    dev, dt = coords.device, coords.dtype
     pcs = pair_classes(basis)
-    qs = schwarz_q(pcs, coords) if screen_tol > 0 else None
-    q_aux_max = _aux_schwarz_max(aux, coords) if screen_tol > 0 else 1.0
-    pair_tabs = [pc.tables(coords) for pc in pcs]
+    with torch.no_grad():
+        qs = schwarz_q(pcs, coords.detach())
+        q_aux_max = _aux_schwarz_max(aux, coords.detach())
+    auxs = _aux_shells(aux, dev, dt)
+    sides = [(_Shells(pc.la, pc.exps_a, pc.coefs_a, pc.atom_a, pc.ao_a,
+                      dev, dt),
+              _Shells(pc.lb, pc.exps_b, pc.coefs_b, pc.atom_b, pc.ao_b,
+                      dev, dt)) for pc in pcs]
     for lP in sorted(aux.groups):
-        gP = aux.groups[lP]
-        tabP = _AuxTables(gP, coords)
-        sP = nsph(lP)
+        gP, shP = aux.groups[lP], auxs[lP]
         for ipc, pc in enumerate(pcs):
-            pair_sel = np.arange(pc.n, dtype=np.int64)
-            if qs is not None:
-                keep = (qs[ipc] * q_aux_max > screen_tol).cpu().numpy()
-                pair_sel = pair_sel[keep]
-                if len(pair_sel) == 0:
-                    continue
+            keep = (qs[ipc] * q_aux_max > SCREEN_TOL).cpu().numpy()
+            pair_sel = np.arange(pc.n, dtype=np.int64)[keep]
+            if len(pair_sel) == 0:
+                continue
             ls = (lP, 0, pc.la, pc.lb)
             q1, q2 = np.mgrid[0:len(gP.shell_idx), 0:len(pair_sel)]
             q1 = q1.ravel()
             q2 = pair_sel[q2.ravel()]
-            chunk = class_chunk(ls, gP.exps.shape[1], 1,
-                                pc.exps_a.shape[1], pc.exps_b.shape[1])
-            sa, sb = nsph(pc.la), nsph(pc.lb)
+            same = (pc.ia[q2] == pc.ib[q2]) if pc.la == pc.lb \
+                else np.zeros(len(q2), bool)
+            mult = torch.as_tensor(np.where(same, 0.5, 1.0), dtype=dt,
+                                   device=dev)
+            q1, q2 = (torch.as_tensor(q, device=dev) for q in (q1, q2))
+            chunk = class_chunk(ls, gP.exps.shape[1], 1, pc.exps_a.shape[1],
+                                pc.exps_b.shape[1], budget=budget)
+            shA, shB = sides[ipc]
             for s in range(0, len(q1), chunk):
-                i1 = torch.as_tensor(q1[s:s + chunk], device=dev)
-                i2 = torch.as_tensor(q2[s:s + chunk], device=dev)
-                ket = tuple(x[i2] for x in pair_tabs[ipc])
-                blocks = eri_quartet_kernel(ls, *tabP.bra(i1), *ket)
-                blocks = blocks[:, :, 0]                 # [nq, sP, sa, sb]
-                pi = torch.as_tensor(gP.ao_start[q1[s:s + chunk]][:, None]
-                                     + np.arange(sP), device=dev)
-                ai = torch.as_tensor(pc.ao_a[q2[s:s + chunk]][:, None]
-                                     + np.arange(sa), device=dev)
-                bi = torch.as_tensor(pc.ao_b[q2[s:s + chunk]][:, None]
-                                     + np.arange(sb), device=dev)
-                P_, A_, B_ = (pi[:, :, None, None], ai[:, None, :, None],
-                              bi[:, None, None, :])
-                out[P_, A_, B_] = blocks
-                out[P_, B_.transpose(2, 3), A_.transpose(2, 3)] = \
-                    blocks.transpose(2, 3)
-    return out
+                i1, i2 = q1[s:s + chunk], q2[s:s + chunk]
+
+                def args(c, i1=i1, i2=i2, shA=shA, shB=shB, shP=shP):
+                    return (*shP.bra(i1, c), *shA.at(i2, c), *shB.at(i2, c))
+
+                rows = (shP.rows(i1)[:, :, None, None],
+                        shA.rows(i2)[:, None, :, None],
+                        shB.rows(i2)[:, None, None, :])
+                yield ls, args, rows, mult[s:s + chunk]
 
 
-def build_2c2e(aux: BasisSet, coords) -> torch.Tensor:
-    """(P|Q) Coulomb metric [naux, naux] on ``coords``' device."""
-    dev = coords.device
-    naux = aux.nao
-    out = torch.zeros((naux, naux), dtype=coords.dtype, device=dev)
+def walk_2c2e(aux: BasisSet, coords, budget: int = CHUNK_BUDGET):
+    """The quartet-kernel chunks that make up the metric (P|Q): aux
+    l-groups lP <= lQ, shells q1 <= q2 within one l, cut as ``walk_3c2e``
+    cuts. Yields (ls, args, (P, Q), mult): P, Q broadcast to the AO indices
+    [nq, sP, sQ] of the blocks ``kernel(...)[:, :, 0, :, 0]``; ``mult`` is
+    0.5 on q1 == q2 within one l, else 1."""
+    dev, dt = coords.device, coords.dtype
+    auxs = _aux_shells(aux, dev, dt)
     ls_sorted = sorted(aux.groups)
     for i, lP in enumerate(ls_sorted):
         gP = aux.groups[lP]
-        tabP = _AuxTables(gP, coords)
         for lQ in ls_sorted[i:]:
             gQ = aux.groups[lQ]
-            tabQ = _AuxTables(gQ, coords)
             q1, q2 = np.mgrid[0:len(gP.shell_idx), 0:len(gQ.shell_idx)]
             q1, q2 = q1.ravel(), q2.ravel()
             if lP == lQ:
                 keep = q1 <= q2
                 q1, q2 = q1[keep], q2[keep]
+            mult = torch.as_tensor(np.where((lP == lQ) & (q1 == q2), 0.5,
+                                            1.0), dtype=dt, device=dev)
+            q1, q2 = (torch.as_tensor(q, device=dev) for q in (q1, q2))
             ls = (lP, 0, lQ, 0)
-            chunk = class_chunk(ls, gP.exps.shape[1], 1, gQ.exps.shape[1], 1)
-            sP, sQ = nsph(lP), nsph(lQ)
+            chunk = class_chunk(ls, gP.exps.shape[1], 1, gQ.exps.shape[1], 1,
+                                budget=budget)
+            shP, shQ = auxs[lP], auxs[lQ]
             for s in range(0, len(q1), chunk):
-                s1, s2 = q1[s:s + chunk], q2[s:s + chunk]
-                blocks = eri_quartet_kernel(
-                    ls, *tabP.bra(torch.as_tensor(s1, device=dev)),
-                    *tabQ.bra(torch.as_tensor(s2, device=dev)))
-                blocks = blocks[:, :, 0, :, 0]           # [nq, sP, sQ]
-                pi = torch.as_tensor(gP.ao_start[s1][:, None]
-                                     + np.arange(sP), device=dev)
-                qi = torch.as_tensor(gQ.ao_start[s2][:, None]
-                                     + np.arange(sQ), device=dev)
-                out[pi[:, :, None], qi[:, None, :]] = blocks
-                out[qi[:, :, None], pi[:, None, :]] = blocks.transpose(1, 2)
+                i1, i2 = q1[s:s + chunk], q2[s:s + chunk]
+
+                def args(c, i1=i1, i2=i2, shP=shP, shQ=shQ):
+                    return (*shP.bra(i1, c), *shQ.bra(i2, c))
+
+                rows = (shP.rows(i1)[:, :, None], shQ.rows(i2)[:, None, :])
+                yield ls, args, rows, mult[s:s + chunk]
+
+
+def build_3c2e(basis: BasisSet, aux: BasisSet, coords) -> torch.Tensor:
+    """(P|ab) tensor [naux, nao, nao] on ``coords``' device: the blocks of
+    ``walk_3c2e``'s chunks and their ab<->ba mirrors, scattered."""
+    naux, nao = aux.nao, basis.nao
+    out = torch.zeros((naux, nao, nao), dtype=coords.dtype,
+                      device=coords.device)
+    for ls, args, (P_, A_, B_), _ in walk_3c2e(basis, aux, coords):
+        blocks = eri_quartet_kernel(ls, *args(coords))[:, :, 0]
+        out[P_, A_, B_] = blocks
+        out[P_, B_.transpose(2, 3), A_.transpose(2, 3)] = \
+            blocks.transpose(2, 3)
+    return out
+
+
+def build_2c2e(aux: BasisSet, coords) -> torch.Tensor:
+    """(P|Q) Coulomb metric [naux, naux] on ``coords``' device."""
+    naux = aux.nao
+    out = torch.zeros((naux, naux), dtype=coords.dtype, device=coords.device)
+    for ls, args, (P_, Q_), _ in walk_2c2e(aux, coords):
+        blocks = eri_quartet_kernel(ls, *args(coords))[:, :, 0, :, 0]
+        out[P_, Q_] = blocks
+        out[Q_.transpose(1, 2), P_.transpose(1, 2)] = blocks.transpose(1, 2)
     return out
 
 
@@ -303,3 +354,12 @@ class DFJK(_BContractions):
         B = self._Linv @ X.reshape(naux, nao * nao)
         del X
         self.B = B.reshape(self._Linv.shape[0], nao, nao)
+
+    @classmethod
+    def from_tensors(cls, aux: BasisSet, B: torch.Tensor,
+                     Linv: torch.Tensor) -> "DFJK":
+        """A builder on a given aux basis, B [nkeep, nao, nao] and Linv
+        [nkeep, naux] (another package's DF tensors, say) with no build."""
+        jk = cls.__new__(cls)
+        jk.aux, jk.B, jk._Linv = aux, B, Linv
+        return jk

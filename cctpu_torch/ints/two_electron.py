@@ -104,11 +104,15 @@ def eri_quartet_kernel(ls: Tuple[int, int, int, int],
     return torch.einsum("sd,...pqrd->...pqrs", c2s(ld, cart), x)
 
 
-def class_chunk(ls, npA, npB, npC, npD, budget: int = 1 << 25,
+# element budget of a kernel call's largest intermediate (256 MB in f64)
+CHUNK_BUDGET = 1 << 25
+
+
+def class_chunk(ls, npA, npB, npC, npD, budget: int = CHUNK_BUDGET,
                 cap: int = 1 << 16) -> int:
     """Quartets per kernel call for a class: bounds the dominant
-    intermediate Rbig [chunk, Kab, Kcd, T1, T2] to ``budget`` elements
-    (256 MB in f64). Power of two."""
+    intermediate Rbig [chunk, Kab, Kcd, T1, T2] to ``budget`` elements.
+    Power of two."""
     T1 = (ls[0] + ls[1] + 1) ** 3
     T2 = (ls[2] + ls[3] + 1) ** 3
     cost = max(npA * npB * npC * npD * T1 * T2, npA * npB * npC * npD * 16)

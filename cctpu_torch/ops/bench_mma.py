@@ -16,8 +16,8 @@ import sys
 import numpy as np
 import torch
 
-import chip_smoke as cs
 from cctpu_torch.ops import build
+from cctpu_torch.utils import measure
 
 SHAPES = {884: (8, 4), 1684: (16, 4), 1688: (16, 8), 16816: (16, 16)}
 
@@ -44,14 +44,14 @@ def layout_error(lib, shape, dev, seed=5) -> float:
     if err != 0:
         raise RuntimeError(f"mma_layout_f64({shape}) failed: {err}")
     torch.cuda.synchronize()
-    return cs.rel_err(c, a @ b)
+    return measure.rel_err(c, a @ b)
 
 
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("bench_mma: no CUDA device")
     dev = torch.device("cuda", 0)
-    cs.emit(cs.card_line())
+    measure.emit(measure.card_line())
     lib = load()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     out = torch.zeros(1, dtype=torch.float64, device=dev)
@@ -60,11 +60,12 @@ def main():
     for shape, (m, k) in SHAPES.items():
         rates = {}
         for warps in (16, 8, 4):
-            ms = cs.cuda_ms(lambda: lib.mma_rate_f64(
+            ms = measure.cuda_ms(lambda: lib.mma_rate_f64(
                 shape, sms, warps, iters, out.data_ptr(), stream), 5)
             rates[warps] = sms * warps * iters * 8 * 2.0 * m * 8 * k / ms / 1e9
-        cs.emit({"mma": shape, "layout_rel_err": layout_error(lib, shape, dev),
-                 "tflops_by_warps_per_sm": rates})
+        measure.emit({"mma": shape,
+                      "layout_rel_err": layout_error(lib, shape, dev),
+                      "tflops_by_warps_per_sm": rates})
     return 0
 
 

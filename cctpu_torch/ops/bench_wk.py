@@ -20,8 +20,9 @@ host's time before each launch is inside), the library call's, the bound,
 and ``queued_ms`` / ``host_ms``: the card's and the host's time a call
 when many are queued back to back. ``--check`` only builds and holds every
 kernel against its plain version once, printing the plans that ran; for
-``df_j`` at every shape of chip_smoke.py (KERNEL_SHAPES, F64_SHAPES,
-C16H34_SHAPE), f64 and f32, one and two densities, repeat calls bitwise.
+``df_j`` at every shape of chip_smoke.py (utils/measure.py's
+KERNEL_SHAPES, F64_SHAPES, C16H34_SHAPE), f64 and f32, one and two
+densities, repeat calls bitwise.
 
 For tuning ops/plan.py: ``--staging`` puts one (kt, stages) first in the
 plan's STAGING order, ``--ring-min`` sets RING_BYTES_MIN (0: the ring of
@@ -37,13 +38,12 @@ in turns within one job on one card.
 
 import argparse
 import hashlib
-import json
 import sys
 
 import torch
 
-import chip_smoke as cs
 from cctpu_torch.ops import build, df_j, df_jk, df_k
+from cctpu_torch.utils import measure
 
 try:
     from cctpu_torch.ops import plan
@@ -108,32 +108,35 @@ def main(argv=None):
         plan.workspaces = keep
     if args.ablate:
         build.NVCC_FLAGS.append(f"-DWK_ABLATE={args.ablate}")
-    cs.emit(cs.card_line())
+    measure.emit(measure.card_line())
     build.compile_all()
     for m in (df_jk, df_j, df_k):
         m.build()
     if hasattr(build, "ptxas_report"):
         for lib in ("df_jk_fused", "df_k"):
-            cs.emit({"ptxas": lib,
-                     "wk_mma": build.ptxas_report(lib, "wk_mma")})
-        cs.emit({"ptxas": "df_j", "kernels": build.ptxas_report("df_j", "")})
+            measure.emit({"ptxas": lib,
+                          "wk_mma": build.ptxas_report(lib, "wk_mma")})
+        measure.emit({"ptxas": "df_j",
+                      "kernels": build.ptxas_report("df_j", "")})
     if args.check:
         check_df_j(dev)
     names = list(SHAPES) if args.shapes == "all" else args.shapes.split(",")
     for name in names:
         naux, nao, nocc = SHAPES[name]
-        B, D, C = cs.device_inputs(naux, nao, nocc, naux, torch.float64, dev)
+        B, D, C = measure.device_inputs(naux, nao, nocc, naux, torch.float64,
+                                        dev)
         D2 = torch.stack([D, D @ D / D.abs().max()])
         reps = args.reps if name != "c16h34" else max(3, args.reps // 3)
         J, K = df_jk.df_jk_fused(B, D, C)
         Jr, Kr = df_jk.df_jk_reference(B, D, C)
         K1 = df_k.df_k_fast(B, C)
         torch.cuda.synchronize()
-        errs = {"rel_err_J": cs.rel_err(J, Jr), "rel_err_K": cs.rel_err(K, Kr),
-                "rel_err_K_df_k": cs.rel_err(K1, Kr)}
-        cs.emit({"shape": name, **errs,
-                 "plan_fused": getattr(df_jk, "LAST_PLAN", None),
-                 "plan_df_k": getattr(df_k, "LAST_PLAN", None)})
+        errs = {"rel_err_J": measure.rel_err(J, Jr),
+                "rel_err_K": measure.rel_err(K, Kr),
+                "rel_err_K_df_k": measure.rel_err(K1, Kr)}
+        measure.emit({"shape": name, **errs,
+                      "plan_fused": getattr(df_jk, "LAST_PLAN", None),
+                      "plan_df_k": getattr(df_k, "LAST_PLAN", None)})
         if args.profile:
             for label, call in (("df_k", lambda: df_k.df_k_fast(B, C)),
                                 ("df_jk_fused",
@@ -141,8 +144,9 @@ def main(argv=None):
                 call()
                 torch.cuda.synchronize()
                 clocks = stash["ws"][1][:, :8].mean(dim=0).tolist()
-                cs.emit({"shape": name, "kernel": label, "clocks_mean_of_"
-                         "blocks": dict(zip(PROFILE_PHASES, clocks))})
+                measure.emit({"shape": name, "kernel": label,
+                              "clocks_mean_of_blocks":
+                              dict(zip(PROFILE_PHASES, clocks))})
             continue
         if max(errs.values()) > 1e-12 and not args.ablate:
             raise RuntimeError(f"bench_wk: a kernel disagrees at {name}")
@@ -153,44 +157,45 @@ def main(argv=None):
         rows = {
             "df_jk_fused": (lambda: df_jk.df_jk_fused(B, D, C),
                             lambda: df_jk.df_jk_reference(B, D, C), None,
-                            cs.work("df_jk_fused", naux, nao, nocc)),
+                            measure.work("df_jk_fused", naux, nao, nocc)),
             "df_k": (lambda: df_k.df_k_fast(B, C),
                      lambda: df_k.df_k_reference(B, C),
-                     lambda: cs.k_library(B, C),
-                     cs.work("df_k", naux, nao, nocc)),
+                     lambda: measure.k_library(B, C),
+                     measure.work("df_k", naux, nao, nocc)),
             "df_j": (lambda: df_j.df_j_fast(B, D2),
                      lambda: df_j.df_j_reference(B, D2),
                      lambda: torch.einsum("pij,sij,pkl->skl", B, D2, B),
-                     cs.work("df_j", naux, nao, nset=2)),
+                     measure.work("df_j", naux, nao, nset=2)),
             "df_j_nset1": (lambda: df_j.df_j_fast(B, D),
                            lambda: df_j.df_j_reference(B, D),
                            lambda: torch.einsum("pij,ij,pkl->kl", B, D, B),
-                           cs.work("df_j", naux, nao, nset=1)),
+                           measure.work("df_j", naux, nao, nset=1)),
             "df_j_f32": (lambda: df_j.df_j_fast(B32, D32),
                          lambda: df_j.df_j_reference(B32, D32),
                          lambda: torch.einsum("pij,sij,pkl->skl", B32, D32,
                                               B32),
-                         half(cs.work("df_j", naux, nao, nset=2))),
+                         half(measure.work("df_j", naux, nao, nset=2))),
             "df_j_f32_nset1": (lambda: df_j.df_j_fast(B32, D32[0]),
                                lambda: df_j.df_j_reference(B32, D32[0]),
                                lambda: torch.einsum("pij,ij,pkl->kl", B32,
                                                     D32[0], B32),
-                               half(cs.work("df_j", naux, nao, nset=1)))}
+                               half(measure.work("df_j", naux, nao, nset=1)))}
         for kern, (k, p, lib, w) in rows.items():
             extra = {}
             if kern == "df_j" or kern.startswith("df_j_"):
                 out = k()
                 torch.cuda.synchronize()
                 extra = {"plan": getattr(df_j, "LAST_PLAN", None),
-                         "rel_err": cs.rel_err(out, p()),
+                         "rel_err": measure.rel_err(out, p()),
                          "sha256_16": hashlib.sha256(
                              out.cpu().numpy().tobytes()).hexdigest()[:16],
                          "traced_ms": traced_ms(k, reps)}
                 del out
-            t = cs.alternated_ms(k, p, reps, library=lib)
+            t = measure.alternated_ms(k, p, reps, library=lib)
             t["queued_ms"], t["host_ms"] = queued_ms(k, 4 * reps)
-            cs.emit({"shape": name, "dims": [naux, nao, nocc],
-                     "kernel": kern, **t, **cs.bound(*w), **extra})
+            measure.emit({"shape": name, "dims": [naux, nao, nocc],
+                          "kernel": kern, **t, **measure.bound(*w),
+                          **extra})
         del B, D, C, D2, B32, D32
         torch.cuda.empty_cache()
     return 0
@@ -225,21 +230,22 @@ def half(work):
 def check_df_j(dev):
     """df_j against its plain version at chip_smoke.py's kernel shapes, f64
     and f32, one and two densities; repeat calls bitwise equal."""
-    for naux, nao, nocc in cs.KERNEL_SHAPES + cs.F64_SHAPES \
-            + [cs.C16H34_SHAPE]:
+    for naux, nao, nocc in measure.KERNEL_SHAPES + measure.F64_SHAPES \
+            + [measure.C16H34_SHAPE]:
         for dtype in (torch.float64, torch.float32):
-            B, D, _ = cs.device_inputs(naux, nao, nocc, naux + 3, dtype, dev)
+            B, D, _ = measure.device_inputs(naux, nao, nocc, naux + 3,
+                                            dtype, dev)
             D2 = torch.stack([D, D @ D / D.abs().max()])
             for dm in (D, D2):
                 J = df_j.df_j_fast(B, dm)
                 plan_j = getattr(df_j, "LAST_PLAN", None)
                 same = bool(torch.equal(J, df_j.df_j_fast(B, dm)))
-                err = cs.rel_err(J, df_j.df_j_reference(B, dm))
-                tol = cs.TOL[str(dtype).split(".")[-1]]
-                cs.emit({"check": "df_j", "shape": [naux, nao],
-                         "dtype": str(dtype), "nset": dm.shape[0]
-                         if dm.ndim == 3 else 1, "rel_err": err,
-                         "bitwise_repeat": same, "plan": plan_j})
+                err = measure.rel_err(J, df_j.df_j_reference(B, dm))
+                tol = measure.TOL[str(dtype).split(".")[-1]]
+                measure.emit({"check": "df_j", "shape": [naux, nao],
+                              "dtype": str(dtype), "nset": dm.shape[0]
+                              if dm.ndim == 3 else 1, "rel_err": err,
+                              "bitwise_repeat": same, "plan": plan_j})
                 if err > tol or not same:
                     raise RuntimeError(f"bench_wk: df_j fails at {naux}/"
                                        f"{nao} {dtype}")

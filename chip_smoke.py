@@ -31,11 +31,23 @@ Run from the root of a checkout. Phases, one printed line or more each:
 3c. the H atom UB3LYP/6-31G* at the removed H's position (nbeta 0)
    against its oracle, and the phenol O-H bond dissociation energy;
 3d. phenol DF-BLYP/6-31G* (pure GGA: J without K) against its oracle;
+3e. the DF nuclear gradient of phase 3's SCF, continued to conv_tol 1e-12
+   and an orbital gradient <= 1e-8 (``cctpu_torch.grad.scf_grad``): two
+   calls bitwise equal, the seconds of each call and of each term (1e, W/Z,
+   3c, 2c, XC, nuclear), peak device memory, s/iter (phase 3's cycles x
+   s/cycle + the second call's seconds, as ``bench.py`` defines it),
+   translational invariance (<= 1e-8 Ha/bohr), central differences of the
+   port's own energy (h = 1e-3 bohr, three components, <= 1e-6), cctpu's
+   CPU-f64 gradient (<= 1e-7), and no J/K kernel launched by the
+   gradient;
+3f. the same for phase 3b's phenoxyl DF-UB3LYP (two FD components);
 4. C16H34/6-31G*: energy of the unrelaxed SAD density from one Fock build
    against cctpu's oracle (<= 1e-6 Ha); J/K, J (two densities and one,
    DF-J's two-pass plan) and K call times at this shape;
 5. the ``energy`` CLI on phenol's SMILES with ``--density-fit``;
-5b. the ``energy`` CLI on the phenoxyl radical with ``--spin 1``.
+5b. the ``energy`` CLI on the phenoxyl radical with ``--spin 1``;
+6. water DF-RHF, water DF-B3LYP and NH2 DF-UB3LYP (6-31G*, grid level 2):
+   SCF and gradient against cctpu's CPU-f64 gradients (<= 1e-7 Ha/bohr).
 
 Any failure raises: the script then exits non-zero without its last line.
 The line before the last lists each kernel with its launches on the main
@@ -44,20 +56,25 @@ last line is ``{"ok": true, "device": {...}}``. Needs no network and
 imports nothing of JAX or of the JAX package.
 """
 
-import json
 import os
-import subprocess
 import tempfile
 import time
 
 import numpy as np
+
+from cctpu_torch.utils.measure import (C16H34_SHAPE, F64_SHAPES, H_ATOM,
+                                       KERNEL_SHAPES, NH2, PHENOL, PHENOXYL,
+                                       TOL, WATER, alkane, alternated_ms,
+                                       bound, card_line, cuda_ms,
+                                       device_inputs, emit, k_library,
+                                       rel_err, work)
 
 # cctpu's host-f64 oracles (scripts/sad_oracles.json)
 PHENOL_E_CONV = -307.45793638428           # DF-B3LYP/6-31G*, grid level 2
 C16H34_E_SAD = -649.7264470874134          # SAD density, one Fock build
 # cctpu's host-f64 oracles of the open-shell slice, made on the CPU with
 # cctpu's f64 path (JAX on the CPU, x64 on), all DF, 6-31G*, grid level 2,
-# conv_tol 1e-10, with the geometries below:
+# conv_tol 1e-10, with the geometries of cctpu_torch/utils/measure.py:
 #   cctpu.dft.rks.UKS(Molecule.from_atoms(PHENOXYL, spin=1,
 #       basis="6-31g*"), xc="b3lyp", density_fit=True, grid_level=2,
 #       conv_tol=1e-10).kernel()        (19 cycles, <S^2> 0.78362916)
@@ -70,133 +87,69 @@ H_ATOM_E_CONV = -0.5002727849165448        # DF-UB3LYP, spin 1 (nbeta 0)
 PHENOL_BLYP_E_CONV = -307.3327949020669    # DF-BLYP (RKS, pure GGA)
 HARTREE2KCAL = 627.5094740631
 
-# bench.py's phenol geometry (Angstrom)
-PHENOL = ("C 0.0000 1.3970 0.0000; C 1.2098 0.6985 0.0000; "
-          "C 1.2098 -0.6985 0.0000; C 0.0000 -1.3970 0.0000; "
-          "C -1.2098 -0.6985 0.0000; C -1.2098 0.6985 0.0000; "
-          "O 0.0000 2.7650 0.0000; H 0.9300 3.1000 0.0000; "
-          "H 2.1500 1.2400 0.0000; H 2.1500 -1.2400 0.0000; "
-          "H 0.0000 -2.4800 0.0000; H -2.1500 -1.2400 0.0000; "
-          "H -2.1500 1.2400 0.0000")
-# the phenoxyl radical and the hydroxyl H atom it lost
-H_ATOM = "H 0.9300 3.1000 0.0000"
-PHENOXYL = PHENOL.replace(H_ATOM + "; ", "")
-
-# (naux, nao, nocc): cctpu's tests/test_pallas_ops.py shapes (unaligned on
-# purpose) and phenol/6-31G*; the J and K kernels also at C16H34/6-31G*
-KERNEL_SHAPES = [(96, 32, 8), (37, 16, 3), (83, 24, 5), (1770, 110, 25)]
-C16H34_SHAPE = (6038, 292, 65)
-# f64 only: an odd nao (8-byte copies), and a C32H66-sized row with few aux
-# rows (neither B[p] nor W_p fits in shared memory: the FMA plan)
-F64_SHAPES = [(61, 15, 4), (150, 600, 129)]
-TOL = {"float64": 1e-12, "float32": 1e-5}
-
-# the card's peaks for the f64 bounds (NVIDIA H100 SXM data sheet, dense
-# rates): device memory 3.35 TB/s; FP64 67 TFLOP/s (the FP64 tensor-core
-# rate, the card's highest for FP64; FMA outside the tensor cores peaks at
-# 34)
-PEAK_BYTES_S = 3.35e12
-PEAK_FP64_FLOP_S = 67e12
-
-
-def alkane(n_carbon: int) -> str:
-    """Zig-zag all-anti n-alkane C_nH_{2n+2} (bench.py's geometry)."""
-    cc, ch = 1.526, 1.090
-    ang = np.deg2rad(111.0)
-    dx = cc * np.sin(ang / 2)
-    dz = cc * np.cos(ang / 2)
-    atoms = []
-    carbons = []
-    for i in range(n_carbon):
-        x = i * dx
-        z = (i % 2) * dz
-        carbons.append((x, 0.0, z))
-        atoms.append(f"C {x:.4f} 0.0 {z:.4f}")
-    for i, (x, y, z) in enumerate(carbons):
-        up = 1.0 if i % 2 == 0 else -1.0
-        atoms.append(f"H {x:.4f} {ch * 0.816:.4f} {z + up * ch * 0.577:.4f}")
-        atoms.append(f"H {x:.4f} {-ch * 0.816:.4f} {z + up * ch * 0.577:.4f}")
-        if i == 0 or i == n_carbon - 1:
-            sgn = -1.0 if i == 0 else 1.0
-            atoms.append(f"H {x + sgn * ch:.4f} 0.0 {z:.4f}")
-    return "; ".join(atoms)
-
-
-def emit(obj):
-    print(json.dumps(obj) if isinstance(obj, dict) else obj, flush=True)
+# cctpu's CPU-f64 DF nuclear gradients (Ha/bohr, atoms in the order of
+# the geometries of cctpu_torch/utils/measure.py), as
+# scripts/make_grad_oracles.py prints them: cctpu's own SCF on the CPU, f64,
+# 6-31G*, DF, grid level 2, conv_tol 1e-12 and conv_tol_grad 1e-8
+#   cctpu.scf.hf.RHF(Molecule.from_atoms(WATER, basis="6-31g*"),
+#       density_fit=True, conv_tol=1e-12, conv_tol_grad=1e-8).kernel()
+#   cctpu.dft.rks.RKS(..., xc="b3lyp", grid_level=2, ...) for water and
+#   phenol, cctpu.dft.rks.UKS(..., spin=1, ...) for NH2 and phenoxyl
+# then cctpu's gradient terms on that state with the W/Z assembly in f64
+# (tests/test_torch_grad.py::cctpu_gradient_terms: jax.grad of the 1e
+# Lagrangian, df_grad._wz_fn, _grad_3c, _grad_2c, jax.grad of
+# exc_of_coords and of energy_nuc).
+GRAD_ORACLES = {
+    "water_rhf": [  # E -76.00910724668111, 17 cycles
+        [-1.300118072847e-15, -7.605959387095e-15, 1.533059763857e-02],
+        [3.610124625890e-16, 7.549648962516e-03, -7.665298819289e-03],
+        [9.391056102516e-16, -7.549648962507e-03, -7.665298819284e-03],
+    ],
+    "water_b3lyp": [  # E -76.40680895083193, 11 cycles
+        [-1.695622886898e-15, -6.508946484266e-15, -1.334129928567e-02],
+        [4.918640799434e-16, -8.075329095749e-03, 6.670649642828e-03],
+        [9.322041531722e-16, 8.075329095760e-03, 6.670649642835e-03],
+    ],
+    "nh2_ub3lyp": [  # E -55.87099329938432, 13 cycles
+        [9.339794694304e-16, -2.837753140487e-15, 1.051084907173e-02],
+        [-3.371703865472e-16, -4.967647857019e-03, -5.255424535868e-03],
+        [-3.308915293584e-16, 4.967647857018e-03, -5.255424535868e-03],
+    ],
+    "phenol_b3lyp": [  # E -307.4579363842764, 28 cycles
+        [-1.018994204228e-02, -2.581698375805e-03, 8.271790139666e-16],
+        [-3.665335851295e-04, 9.471976053186e-03, -2.458738201980e-15],
+        [3.926002036542e-03, -2.421311207539e-03, 1.519661523331e-15],
+        [-5.506845270997e-04, 1.664537105594e-03, -6.329518923870e-16],
+        [-6.596055348907e-03, -4.257392298044e-03, -1.148741616590e-15],
+        [6.383750075623e-03, 1.457060415189e-04, -7.868266487555e-16],
+        [-5.411729583405e-03, -8.406784474742e-03, -8.201750286209e-17],
+        [1.583461286211e-02, 8.707278880831e-03, -2.871180615716e-16],
+        [-2.105424047995e-03, -1.904117267316e-03, 4.236041959063e-16],
+        [-1.224265621893e-03, 8.267799524253e-05, -1.846844719162e-16],
+        [-1.725298385953e-04, 2.439917793365e-03, 1.221903678751e-16],
+        [1.185871784454e-03, -3.878735231395e-04, -2.064647238408e-16],
+        [-7.130721635820e-04, -2.552916723191e-03, 1.646705984085e-16],
+    ],
+    "phenoxyl_ub3lyp": [  # E -306.8112830449596, 38 cycles
+        [-2.490626359290e-14, -8.668874262455e-02, 1.511485861179e-15],
+        [-2.140875416551e-02, 2.281653153176e-02, -1.445921906585e-15],
+        [-5.053817671882e-03, -1.048776882051e-02, -3.527424918998e-16],
+        [9.103559789532e-14, 1.894213986636e-03, -1.864792459099e-15],
+        [5.053817671842e-03, -1.048776882064e-02, 2.127959066856e-15],
+        [2.140875416553e-02, 2.281653153174e-02, -4.021560814882e-16],
+        [1.014899638455e-14, 6.278018882143e-02, -1.645638010138e-15],
+        [1.764181194068e-03, -2.959050883822e-03, 9.549206603493e-17],
+        [-8.656971850147e-04, 3.707586080817e-04, 1.150757638468e-16],
+        [-5.999852481841e-14, 2.533398945537e-03, -1.599865692949e-16],
+        [8.656971849588e-04, 3.707586081474e-04, -1.714855791982e-17],
+        [-1.764181194071e-03, -2.959050883824e-03, 2.001100869891e-16],
+    ],
+}
 
 
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
-
-
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Median milliseconds of fn() over reps runs, CUDA events."""
-    import torch
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
-
-
-def alternated_ms(kernel, plain, reps: int, library=None) -> dict:
-    """Kernel and plain (and a library call) timed in turns: plain,
-    kernel, kernel, plain; medians of the two rounds each."""
-    p1 = cuda_ms(plain, reps)
-    k1 = cuda_ms(kernel, reps)
-    k2 = cuda_ms(kernel, reps)
-    p2 = cuda_ms(plain, reps)
-    out = {"ms": float(np.median([k1, k2])),
-           "plain_ms": float(np.median([p1, p2])),
-           "kernel_ms_rounds": [k1, k2], "plain_ms_rounds": [p1, p2],
-           "library_ms": None}
-    if library is not None:
-        out["library_ms"] = cuda_ms(library, reps)
-    return out
-
-
-def bound(nbytes: float, flops: float) -> dict:
-    """The least time the card could take for an f64 call: the larger of
-    bytes over the memory rate and flops over the FP64 peak."""
-    t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = flops / PEAK_FP64_FLOP_S * 1e3
-    return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-
-
-def work(name, naux, nao, nocc=0, nset=1):
-    """(bytes, flops) of one f64 call: each input read once, each output
-    written once; the contractions' multiply-adds counted as 2 flops. K
-    costs 3*nocc flops per element of B: 2 for W_p = (B[p] C)^T and 1 for
-    the symmetric K = sum_p W_p^T W_p (half of the square)."""
-    b, n2 = naux * nao * nao, nao * nao
-    if name == "df_jk_fused":
-        return (b + n2 + nao * nocc + 2 * n2) * 8, 4.0 * b + 3.0 * b * nocc
-    if name == "df_j":
-        return (b + 2 * nset * n2) * 8, 4.0 * nset * b
-    return (b + nao * nocc + n2) * 8, 3.0 * b * nocc           # df_k
-
-
-def k_library(B, C):
-    """K of B and Cocc in one PyTorch call (timed beside df_k; the port
-    never calls it). torch orders the contraction with opt_einsum where
-    that package is installed, else left to right."""
-    import torch
-    return torch.einsum("pik,ka,pjl,la->ij", B, C, B, C)
 
 
 def jk_inputs(naux, nao, nocc, seed, dtype, dev):
@@ -207,20 +160,6 @@ def jk_inputs(naux, nao, nocc, seed, dtype, dev):
     D = 2 * C @ C.T
     return tuple(torch.as_tensor(x, dtype=dtype, device=dev)
                  for x in (B, D, C))
-
-
-def device_inputs(naux, nao, nocc, seed, dtype, dev):
-    """Large random inputs, made on the card from a seed."""
-    import torch
-    g = torch.Generator(device=dev)
-    g.manual_seed(seed)
-    B = torch.randn((naux, nao, nao), generator=g, dtype=dtype, device=dev)
-    C = torch.randn((nao, nocc), generator=g, dtype=dtype, device=dev)
-    return B, 2 * C @ C.T, C
-
-
-def rel_err(x, ref):
-    return float((x - ref).abs().max() / ref.abs().max())
 
 
 def wk_report(module, lib: str) -> dict:
@@ -354,7 +293,8 @@ def run_scf(cls, atoms, dev, spin=0, **kw):
     torch.cuda.synchronize()
     t_df = time.time() - t0
     t0 = time.time()
-    mf._prepare_xc_f64()
+    if hasattr(mf, "_prepare_xc_f64"):                 # RKS, UKS
+        mf._prepare_xc_f64()
     torch.cuda.synchronize()
     t_ao = time.time() - t0
     reset_counts()
@@ -381,7 +321,7 @@ def phase_phenol(dev):
     check(de <= 1e-8, f"phenol |dE| {de:.3e} > 1e-8 Ha")
     check(launches["df_jk_fused"] >= mf.n_cycles,
           f"fused kernel launched {launches} in {mf.n_cycles} cycles")
-    return e, launches["df_jk_fused"]
+    return e, launches["df_jk_fused"], mf, info
 
 
 def phase_phenoxyl(dev):
@@ -439,7 +379,7 @@ def phase_phenoxyl(dev):
     for name in ("df_j", "df_k"):
         check(out[name]["rel_err"] <= TOL["float64"],
               f"{name} disagrees at phenoxyl's tensors")
-    return e, out
+    return e, out, mf, info
 
 
 def phase_h_atom(dev, e_phenol, e_phenoxyl):
@@ -471,6 +411,98 @@ def phase_phenol_blyp(dev):
           f"phenol BLYP launches {n} in {mf.n_cycles} cycles")
     check(df_j.LAST_PLAN["kind"] == "one_pass",
           f"phenol BLYP's SCF ran df_j's {df_j.LAST_PLAN['kind']} plan")
+
+
+def fd_gradient(mf, comps, h=1e-3):
+    """Central differences of the port's card energy at components
+    ``comps`` [(atom, axis)]: SCFs of ``mf``'s kind at +-h bohr, warm
+    started from ``mf.dm``, at conv_tol 1e-12."""
+    mol = mf.mol
+    kw = {} if getattr(mf, "func", None) is None else dict(xc=mf.xc)
+    out = []
+    for ia, ax in comps:
+        e = []
+        for sgn in (1.0, -1.0):
+            c = mol.coords.copy()
+            c[ia, ax] += sgn * h
+            m2 = type(mf)(mol.with_coords(c), density_fit=True,
+                          grid_level=2, conv_tol=1e-12, max_cycle=60,
+                          device=mf.device, **kw)
+            e.append(m2.kernel(dm0=mf.dm))
+            check(m2.converged, f"FD SCF at {ia},{ax} did not converge")
+        out.append((e[0] - e[1]) / (2 * h))
+    return out
+
+
+def phase_gradient(tag, mf, info, fd_comps, oracle):
+    """The DF nuclear gradient of phase ``info``'s SCF ``mf``, continued
+    from its density to conv_tol 1e-12 and an orbital gradient <= 1e-8:
+    two calls (bitwise equal), per-term seconds, peak device memory,
+    s/iter, translational invariance, central differences at ``fd_comps``
+    and cctpu's oracle. The J/K kernels' launch counts are
+    reset before the gradient and must stay 0: it launches none of them."""
+    import torch
+    from cctpu_torch.grad.scf_grad import gradient
+    from cctpu_torch.utils.profiling import PhaseTimer
+    dev = mf.device
+    mf.opts.conv_tol, mf.opts.conv_tol_grad = 1e-12, 1e-8
+    mf.kernel(dm0=mf.dm)
+    check(mf.converged, f"{tag}: the SCF did not converge to 1e-12")
+    reset_counts()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    calls = []
+    for _ in range(2):
+        timer = PhaseTimer(dev)
+        t0 = time.time()
+        g = gradient(mf, timer)
+        torch.cuda.synchronize(dev)
+        calls.append((g, time.time() - t0, timer.phases))
+    peak = torch.cuda.max_memory_allocated(dev)
+    launches = counts()
+    (g1, s1, terms1), (g2, s2, terms2) = calls
+    bitwise = bool(torch.equal(g1, g2))
+    g = g1.cpu().numpy()
+    inv = float(np.abs(g.sum(0)).max())
+    fd = fd_gradient(mf, fd_comps) if fd_comps else []
+    fd_err = [abs(float(g[ia, ax]) - f) for (ia, ax), f in zip(fd_comps, fd)]
+    orc_err = float(np.abs(g - np.asarray(oracle)).max())
+    res = {"phase": tag, "card": card_line(), "E": mf.e_tot,
+           "cycles_to_1e-12": mf.n_cycles, "grad_s_first": s1,
+           "grad_s": s2, "terms_s_first": terms1, "terms_s": terms2,
+           "peak_mem_GB": peak / 1e9, "bitwise_repeat": bitwise,
+           "max_abs_sum_g": inv, "fd_components": fd_comps,
+           "fd": fd, "abs_err_fd": fd_err, "abs_err_vs_cctpu": orc_err,
+           "launches_in_gradient": launches, "gradient": g.tolist()}
+    if info is not None:
+        res["s_per_iter"] = info["cycles"] * info["s_per_cycle"] + s2
+        res["scf_cycles"], res["scf_s_per_cycle"] = \
+            info["cycles"], info["s_per_cycle"]
+    emit(res)
+    check(np.isfinite(g).all() and g.shape == (mf.mol.natm, 3),
+          f"{tag}: gradient not finite or of the wrong shape")
+    check(bitwise, f"{tag}: two gradient calls differ")
+    check(inv <= 1e-8, f"{tag}: max |sum_A g_A| {inv:.2e} > 1e-8")
+    check(max(fd_err, default=0.0) <= 1e-6,
+          f"{tag}: |g - FD| {fd_err} > 1e-6")
+    check(orc_err <= 1e-7,
+          f"{tag}: |g - cctpu| {orc_err} > 1e-7")
+    check(not any(launches.values()),
+          f"{tag}: the gradient launched J/K kernels {launches}")
+    return res
+
+
+def phase_small_gradients(dev):
+    """Water DF-RHF, water DF-B3LYP and NH2 DF-UB3LYP (6-31G*, grid level
+    2): SCF and gradient on the card against cctpu's CPU-f64 gradients."""
+    from cctpu_torch.dft.rks import RKS, UKS
+    from cctpu_torch.scf.hf import RHF
+    for tag, cls, atoms, spin, kw in (
+            ("water_rhf", RHF, WATER, 0, {}),
+            ("water_b3lyp", RKS, WATER, 0, dict(xc="b3lyp")),
+            ("nh2_ub3lyp", UKS, NH2, 1, dict(xc="b3lyp"))):
+        mf, _, _ = run_scf(cls, atoms, dev, spin=spin, **kw)
+        phase_gradient(f"gradient_{tag}", mf, None, [], GRAD_ORACLES[tag])
 
 
 def phase_c16h34(dev):
@@ -591,9 +623,16 @@ def main():
 
     fused = phase_kernel(df_jk, dev)
     phase_kernel_j_k(dev)
-    e_phenol, fused["launches"] = phase_phenol(dev)
+    e_phenol, fused["launches"], mf, info = phase_phenol(dev)
+    # O y, the hydroxyl H x, C1 y (the molecule lies in z = 0)
+    phase_gradient("gradient_phenol_b3lyp", mf, info,
+                   [(6, 1), (7, 0), (0, 1)], GRAD_ORACLES["phenol_b3lyp"])
+    del mf
     torch.cuda.empty_cache()
-    e_phenoxyl, jk = phase_phenoxyl(dev)
+    e_phenoxyl, jk, mf, info = phase_phenoxyl(dev)
+    phase_gradient("gradient_phenoxyl_ub3lyp", mf, info, [(6, 1), (1, 0)],
+                   GRAD_ORACLES["phenoxyl_ub3lyp"])
+    del mf
     torch.cuda.empty_cache()
     phase_h_atom(dev, e_phenol, e_phenoxyl)
     phase_phenol_blyp(dev)
@@ -602,6 +641,7 @@ def main():
     torch.cuda.empty_cache()
     phase_cli("Oc1ccccc1", [], "cli_energy", "df_jk_fused")
     phase_cli("[O]c1ccccc1", ["--spin", "1"], "cli_energy_spin1", "df_k")
+    phase_small_gradients(dev)
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
