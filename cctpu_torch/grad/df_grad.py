@@ -86,35 +86,39 @@ def _wz(B, Linv, Dt, facs, ax: float):
     return W + W.transpose(1, 2), Z + Z.T
 
 
-def _grad_of(walk, coords, weights, pick):
-    """sum over ``walk``'s chunks of mult * blocks * weights[rows],
+def grad_of_walk(walk, coords, chunk_energy):
+    """sum over ``walk``'s chunks of ``chunk_energy(blocks, rows, mult)``,
     differentiated in the coordinates chunk by chunk: [natm, 3]. Each
     chunk's centers are rows of the leaf, so each chunk's graph is freed
     after its backward."""
     leaf = coords.detach().requires_grad_(True)
     g = torch.zeros_like(coords)
     for ls, args, rows, mult in walk:
-        wblk = weights[rows]
         with torch.enable_grad():
-            blocks = pick(eri_quartet_kernel(ls, *args(leaf)))
-            e = torch.einsum("q,q...,q...->", mult, blocks, wblk)
+            e = chunk_energy(eri_quartet_kernel(ls, *args(leaf)), rows, mult)
             gc, = torch.autograd.grad(e, leaf)
         g = g + gc
     return g
 
 
+def _weighted(weights, pick):
+    """A chunk energy sum_q mult * pick(blocks) * weights[rows]."""
+    return lambda blocks, rows, mult: torch.einsum(
+        "q,q...,q...->", mult, pick(blocks), weights[rows])
+
+
 def _grad_3c(basis, aux, coords, Ws):
     """sum_{P,ab} d(P|ab)/dR Ws[P,a,b] / 2 over ``walk_3c2e``'s AO pairs
     (each pair once, a same-shell pair at half weight): [natm, 3]."""
-    return _grad_of(walk_3c2e(basis, aux, coords, budget=_GRAD_BUDGET),
-                    coords, Ws, lambda blk: blk[:, :, 0])
+    return grad_of_walk(walk_3c2e(basis, aux, coords, budget=_GRAD_BUDGET),
+                        coords, _weighted(Ws, lambda blk: blk[:, :, 0]))
 
 
 def _grad_2c(aux, coords, Zs):
     """sum_PQ d(P|Q)/dR Zs[P,Q] / 2 over ``walk_2c2e``'s aux shell pairs
     (lP <= lQ, q1 <= q2 within one l, q1 == q2 at half weight): [natm, 3]."""
-    return _grad_of(walk_2c2e(aux, coords, budget=_GRAD_BUDGET),
-                    coords, Zs, lambda blk: blk[:, :, 0, :, 0])
+    return grad_of_walk(walk_2c2e(aux, coords, budget=_GRAD_BUDGET), coords,
+                        _weighted(Zs, lambda blk: blk[:, :, 0, :, 0]))
 
 
 def df_e2_gradient(mf, timer=None) -> torch.Tensor:
@@ -123,11 +127,6 @@ def df_e2_gradient(mf, timer=None) -> torch.Tensor:
     ``utils.profiling.PhaseTimer``, receives the phases ``wz`` (the W/Z
     assembly), ``3c`` and ``2c``."""
     func = getattr(mf, "func", None)
-    if getattr(func, "rsh", None) is not None:
-        raise NotImplementedError(
-            f"{func.name}: the long-range DF gradient terms of "
-            "range-separated functionals are not ported (ROADMAP.md queue 1 "
-            "item 10)")
     ax = 1.0 if func is None else func.hyb
     jk = mf.get_jk_builder()
     dm = mf.dm

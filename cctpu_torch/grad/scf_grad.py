@@ -1,14 +1,17 @@
-"""Analytic nuclear gradient of a converged density-fitted SCF.
+"""Analytic nuclear gradient of a converged SCF.
 
-Port of ``cctpu/grad/scf_grad.py::scf_gradient_eager(mf, df=True)``: the
-standard analytic-gradient expression
+Port of ``cctpu/grad/scf_grad.py::scf_gradient_eager``: the standard
+analytic-gradient expression
 
-  dE/dR = Tr[D dH/dR] - Tr[W dS/dR] + dE_2e/dR|_DF + dExc/dR|_D + dEnuc/dR
+  dE/dR = Tr[D dH/dR] - Tr[W dS/dR] + dE_2e/dR + dExc/dR|_D + dEnuc/dR
 
 assembled term by term on the SCF's device in f64. The 1e and nuclear
-terms are autograd of the integral builders; the DF two-electron term is
-``grad/df_grad.py``; the XC term, with the grid-weight derivatives, is the
-functional's ``exc_of_coords``. No CPHF is needed for SCF gradients.
+terms are autograd of the integral builders; the XC term, with the
+grid-weight derivatives, is the functional's ``exc_of_coords``. The
+two-electron term of a density-fitted SCF is ``grad/df_grad.py``; that of
+an in-core or Cholesky SCF is the direct term, autograd of the exact
+E_2e through the quartet kernel (as in cctpu, a Cholesky SCF's gradient
+goes direct). No CPHF is needed for SCF gradients.
 
 PyTorch runs one eager path, so cctpu's single traced ``scf_gradient`` and
 its platform dispatch (both there for a whole-program compiler) have no
@@ -19,8 +22,11 @@ from __future__ import annotations
 
 import torch
 
-from cctpu_torch.grad.df_grad import df_e2_gradient
+from cctpu_torch.grad.df_grad import _GRAD_BUDGET, df_e2_gradient, \
+    grad_of_walk
 from cctpu_torch.ints.one_electron import build_int1e_eager
+from cctpu_torch.ints.two_electron import chunk_energy_2e, e2_densities, \
+    walk_4c
 from cctpu_torch.utils.profiling import phase
 
 
@@ -43,19 +49,38 @@ def _check_supported(mf):
         raise NotImplementedError(
             "the PCM solvation gradient is not ported (ROADMAP.md queue 1 "
             "item 14)")
-    if mf.density_fit is not True:
+    if getattr(func, "rsh", None) is not None:
         raise NotImplementedError(
-            f"density_fit={mf.density_fit!r}: only the dense density-fitted "
-            "gradient is ported; in-core and Cholesky J/K are ROADMAP.md "
-            "queue 1 item 9")
+            f"{func.name}: the long-range gradient terms of range-separated "
+            "functionals are not ported (ROADMAP.md queue 1 item 10)")
+    if mf.density_fit == "compressed":
+        raise NotImplementedError(
+            "the pair-compressed DF gradient is not ported (ROADMAP.md "
+            "queue 1 item 19)")
+
+
+def direct_e2_gradient(mf, timer=None) -> torch.Tensor:
+    """d(E_2e)/dR [natm, 3] of the exact two-electron energy at ``mf.dm``
+    (``energy_2e_direct`` with the functional's exchange weight):
+    autograd through the quartet kernel, one ``walk_4c`` chunk at a time.
+    ``timer`` receives the phase ``2e``."""
+    func = getattr(mf, "func", None)
+    Dt, Dks, kw = e2_densities(mf.dm, 1.0 if func is None else func.hyb)
+    with phase(timer, "2e"):
+        return grad_of_walk(
+            walk_4c(mf.mol.basis_set, mf.coords, budget=_GRAD_BUDGET),
+            mf.coords, lambda blocks, rows, mult: chunk_energy_2e(
+                blocks, rows, mult, Dt, Dks, kw))
 
 
 def gradient(mf, timer=None) -> torch.Tensor:
     """dE/dR [natm, 3] (Ha/bohr, f64, on the SCF's device) of a converged
-    density-fitted RHF, UHF, RKS or UKS ``mf`` at ``mf.mol``'s geometry.
+    RHF, UHF, RKS or UKS ``mf`` (density-fitted, in-core or Cholesky) at
+    ``mf.mol``'s geometry.
 
     ``timer``, a ``utils.profiling.PhaseTimer``, receives the seconds of
-    each term: ``1e``, ``wz``, ``3c``, ``2c``, ``xc`` and ``nuc``."""
+    each term: ``1e``, ``xc``, ``nuc`` and ``wz``, ``3c``, ``2c`` (DF) or
+    ``2e`` (in-core, Cholesky)."""
     _check_supported(mf)
     if mf.dm is None or mf.mo_coeff is None:
         raise ValueError("gradient needs a converged SCF: run kernel() "
@@ -74,7 +99,10 @@ def gradient(mf, timer=None) -> torch.Tensor:
                   - torch.einsum("ij,ij->", W, ints["S"]))
             g, = torch.autograd.grad(e1, leaf)
         del ints
-    g = g + df_e2_gradient(mf, timer)
+    if mf.density_fit in (False, None, "cd"):
+        g = g + direct_e2_gradient(mf, timer)
+    else:
+        g = g + df_e2_gradient(mf, timer)
     func = getattr(mf, "func", None)
     if func is not None and func.exc is not None:
         with phase(timer, "xc"):

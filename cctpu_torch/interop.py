@@ -1,5 +1,6 @@
 """State carried across from cctpu as plain numpy: basis, molecule,
-density-fitting tensors and a converged SCF state.
+density-fitting tensors, the in-core ERI tensor and a converged SCF
+state.
 
 The state of this system is the basis and the density, not weights. These
 helpers build the port's objects from numpy data (as exported from the
@@ -18,6 +19,7 @@ from cctpu_torch.core.basis import BasisSet, Shell
 from cctpu_torch.core.molecule import Molecule
 from cctpu_torch.device import DTYPE, default_device
 from cctpu_torch.ints.df import DFJK
+from cctpu_torch.scf.hf import IncoreJK
 
 
 def basis_from_numpy(shells: Iterable, coords_bohr: np.ndarray) -> BasisSet:
@@ -69,6 +71,14 @@ def dfjk_from_numpy(aux_shells: Iterable, coords_bohr: np.ndarray,
     return DFJK.from_tensors(basis_from_numpy(aux_shells, coords_bohr),
                              dm_from_numpy(B, device), dm_from_numpy(Linv,
                                                                      device))
+
+
+def eri_from_numpy(eri: np.ndarray,
+                   device: Optional[torch.device] = None) -> IncoreJK:
+    """The port's in-core J/K builder on a given (ij|kl) tensor [nao, nao,
+    nao, nao] (cctpu's ``build_eri_incore``, say). Set it as an SCF's
+    ``_jk`` before ``kernel()`` to run the SCF on those integrals."""
+    return IncoreJK.from_eri(dm_from_numpy(eri, device))
 
 
 def set_scf_state(mf, dm: np.ndarray, mo_coeff: np.ndarray,

@@ -10,6 +10,10 @@ Everything is built on the device in f64: the quartet kernel fills X and
 the metric class by class, ``metric_factor`` whitens on the device (eigh)
 or, for large aux sets, selects a well-conditioned subset with LAPACK's
 pivoted Cholesky on the host, and B = Linv @ X is one f64 matmul.
+
+``CholeskyJK`` runs the same contractions on another factor: the pivoted
+Cholesky vectors of the in-core ERI tensor (``cholesky_B``), exact to the
+decomposition's tolerance.
 """
 
 from __future__ import annotations
@@ -19,9 +23,10 @@ import math
 import numpy as np
 import torch
 
-from cctpu_torch.core.basis import BasisSet, Shell, normalize_contraction, nsph
+from cctpu_torch.core.basis import BasisSet, Shell, normalize_contraction
 from cctpu_torch.device import as_tensor
-from cctpu_torch.ints.two_electron import (CHUNK_BUDGET, class_chunk,
+from cctpu_torch.ints.two_electron import (CHUNK_BUDGET, Shells,
+                                           build_eri_incore, class_chunk,
                                            eri_quartet_kernel, pair_classes,
                                            schwarz_q)
 from cctpu_torch.ops.df_j import df_j_fast
@@ -76,44 +81,12 @@ def autoaux(basis: BasisSet, beta: float = 1.8, extra_l: int = 2,
 # Schwarz screening threshold of the 3c2e walk: an AO pair is skipped when
 # Q_ab * max_P Q_P falls below it (|(P|ab)| <= Q_P Q_ab)
 SCREEN_TOL = 1e-12
-
-
-class _Shells:
-    """One l-group of shells on the device: exponents, coefficients, atoms
-    and first AOs. The centers are gathered from the coordinates each call
-    is given, so a chunk's centers follow them under autograd."""
-
-    def __init__(self, l, exps, coefs, atom, ao_start, dev, dt):
-        self.l = l
-        self.e = torch.as_tensor(exps, dtype=dt, device=dev)
-        self.c = torch.as_tensor(coefs, dtype=dt, device=dev)
-        self.atom = torch.as_tensor(atom, device=dev)
-        self.ao = torch.as_tensor(ao_start, device=dev)
-
-    @classmethod
-    def of_group(cls, l, g, dev, dt):
-        return cls(l, g.exps, g.coefs, g.atom_idx, g.ao_start, dev, dt)
-
-    def at(self, i, coords):
-        """(exps, coefs, centers) of shells ``i``."""
-        return self.e[i], self.c[i], coords[self.atom[i]]
-
-    def bra(self, i, coords):
-        """(eP, cP, P, e_dummy, c_dummy, P) of aux shells ``i``: the dummy
-        s-function (exponent 0, coefficient 1) turns the 4-center quartet
-        kernel into a 2- or 3-center one."""
-        e, c, xyz = self.at(i, coords)
-        return (e, c, xyz, torch.zeros_like(e[:, :1]),
-                torch.ones_like(c[:, :1]), xyz)
-
-    def rows(self, i):
-        """AO indices [len(i), 2l+1] of shells ``i``."""
-        return self.ao[i][:, None] + torch.arange(nsph(self.l),
-                                                  device=self.ao.device)
+# the pivoted Cholesky's stop: the largest residual diagonal (cctpu's tol)
+CHOLESKY_TOL = 1e-9
 
 
 def _aux_shells(aux: BasisSet, dev, dt):
-    return {l: _Shells.of_group(l, g, dev, dt) for l, g in aux.groups.items()}
+    return {l: Shells.of_group(l, g, dev, dt) for l, g in aux.groups.items()}
 
 
 def _aux_schwarz_max(aux: BasisSet, coords) -> float:
@@ -148,10 +121,7 @@ def walk_3c2e(basis: BasisSet, aux: BasisSet, coords,
         qs = schwarz_q(pcs, coords.detach())
         q_aux_max = _aux_schwarz_max(aux, coords.detach())
     auxs = _aux_shells(aux, dev, dt)
-    sides = [(_Shells(pc.la, pc.exps_a, pc.coefs_a, pc.atom_a, pc.ao_a,
-                      dev, dt),
-              _Shells(pc.lb, pc.exps_b, pc.coefs_b, pc.atom_b, pc.ao_b,
-                      dev, dt)) for pc in pcs]
+    sides = [pc.shells(dev, dt) for pc in pcs]
     for lP in sorted(aux.groups):
         gP, shP = aux.groups[lP], auxs[lP]
         for ipc, pc in enumerate(pcs):
@@ -363,3 +333,51 @@ class DFJK(_BContractions):
         jk = cls.__new__(cls)
         jk.aux, jk.B, jk._Linv = aux, B, Linv
         return jk
+
+
+def cholesky_B(mol, coords: torch.Tensor) -> torch.Tensor:
+    """Pivoted (Beebe-Linderberg) Cholesky factor of the ERI supermatrix,
+    B [K, nao, nao] on ``coords``' device with (ij|kl) = sum_P B[P,i,j]
+    B[P,k,l] up to a residual diagonal below ``CHOLESKY_TOL``, so |E -
+    E_incore| is of that order (the 1e-8 Ha contract path), where
+    basis-set density fitting errs by ~1e-6 Ha.
+
+    M is the [nao^2, nao^2] view of ``build_eri_incore``'s tensor. Each
+    step takes the largest residual diagonal (the first on ties) and one
+    matrix-vector product of the vectors so far, col = M[:, p] - V^T V[:,
+    p], and stops when that diagonal falls below ``CHOLESKY_TOL``; B is
+    then symmetrized in (i, j), as cctpu does. One host read per step."""
+    n = mol.nao
+    M = build_eri_incore(mol.basis_set, coords).reshape(n * n, n * n)
+    diag = torch.diagonal(M).clone()
+    V = torch.empty((8 * n, n * n), dtype=M.dtype, device=M.device)
+    k = 0
+    while k < n * n:
+        dmax, p = torch.max(diag, 0)
+        dmax_h, p_h = torch.stack([dmax, p.to(dmax.dtype)]).tolist()
+        if dmax_h < CHOLESKY_TOL:
+            break
+        if k == V.shape[0]:
+            V = torch.cat([V, torch.empty_like(V)])
+        p_h = int(p_h)
+        v = (M[:, p_h] - V[:k].T @ V[:k, p_h]) / torch.sqrt(dmax)
+        V[k] = v
+        diag = torch.clamp(diag - v * v, min=0.0)
+        k += 1
+    del M
+    B = V[:k].reshape(k, n, n)
+    return 0.5 * (B + B.transpose(1, 2))
+
+
+class CholeskyJK(_BContractions):
+    """J/K from the pivoted-Cholesky factor (``cholesky_B``): the same
+    contractions, and so the same Hopper kernels, as ``DFJK``, on a factor
+    exact to ``CHOLESKY_TOL``."""
+
+    def __init__(self, mol, coords: torch.Tensor):
+        self.B = cholesky_B(mol, coords)
+
+    def k_lr(self, dm, omega: float, cocc=None):
+        raise NotImplementedError(
+            "long-range exchange through the Cholesky factor comes with the "
+            "range-separated functionals (ROADMAP.md queue 1 item 10)")

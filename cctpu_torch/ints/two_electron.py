@@ -8,18 +8,23 @@ This stays plain torch: cctpu never wrote the quartet kernel in Pallas.
 
 A 3c2e integral (P|ab) is the same kernel with a dummy s-function (exponent
 0, coefficient 1) paired with the auxiliary shell.
+
+``walk_4c`` walks the unique 4-center shell quartets in chunks; over it,
+``build_eri_incore`` scatters the full in-core tensor and
+``energy_2e_direct`` contracts each block with the density at once (the
+direct energy, and by autograd the direct nuclear gradient).
 """
 
 from __future__ import annotations
 
 import math
 from functools import lru_cache
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from cctpu_torch.core.basis import BasisSet, ncart
+from cctpu_torch.core.basis import BasisSet, ncart, nsph
 from cctpu_torch.ints.md import e3_components, r_box
 from cctpu_torch.ints.one_electron import c2s, shell_pairs
 
@@ -124,6 +129,40 @@ def class_chunk(ls, npA, npB, npC, npD, budget: int = CHUNK_BUDGET,
 # Pair bookkeeping (host side, numpy)
 # ----------------------------------------------------------------------------
 
+class Shells:
+    """One l-group of shells on the device: exponents, coefficients, atoms
+    and first AOs. The centers are gathered from the coordinates each call
+    is given, so a chunk's centers follow them under autograd."""
+
+    def __init__(self, l, exps, coefs, atom, ao_start, dev, dt):
+        self.l = l
+        self.e = torch.as_tensor(exps, dtype=dt, device=dev)
+        self.c = torch.as_tensor(coefs, dtype=dt, device=dev)
+        self.atom = torch.as_tensor(atom, device=dev)
+        self.ao = torch.as_tensor(ao_start, device=dev)
+
+    @classmethod
+    def of_group(cls, l, g, dev, dt):
+        return cls(l, g.exps, g.coefs, g.atom_idx, g.ao_start, dev, dt)
+
+    def at(self, i, coords):
+        """(exps, coefs, centers) of shells ``i``."""
+        return self.e[i], self.c[i], coords[self.atom[i]]
+
+    def bra(self, i, coords):
+        """(eP, cP, P, e_dummy, c_dummy, P) of aux shells ``i``: the dummy
+        s-function (exponent 0, coefficient 1) turns the 4-center quartet
+        kernel into a 2- or 3-center one."""
+        e, c, xyz = self.at(i, coords)
+        return (e, c, xyz, torch.zeros_like(e[:, :1]),
+                torch.ones_like(c[:, :1]), xyz)
+
+    def rows(self, i):
+        """AO indices [len(i), 2l+1] of shells ``i``."""
+        return self.ao[i][:, None] + torch.arange(nsph(self.l),
+                                                  device=self.ao.device)
+
+
 class PairClass:
     """All shell pairs of one (la, lb) class, la <= lb; i <= j when la==lb."""
 
@@ -141,6 +180,13 @@ class PairClass:
         self.ao_a = ga.ao_start[ia]
         self.ao_b = gb.ao_start[ib]
         self.n = len(ia)
+
+    def shells(self, dev, dt):
+        """(Shells of the a sides, Shells of the b sides), pair by pair."""
+        return (Shells(self.la, self.exps_a, self.coefs_a, self.atom_a,
+                       self.ao_a, dev, dt),
+                Shells(self.lb, self.exps_b, self.coefs_b, self.atom_b,
+                       self.ao_b, dev, dt))
 
     def tables(self, coords):
         """(eA, cA, A, eB, cB, B) of every pair, on ``coords``' device."""
@@ -184,3 +230,136 @@ def schwarz_q(pcs: List[PairClass], coords) -> List[torch.Tensor]:
             q.append(torch.sqrt(diag.amax(dim=(1, 2))))
         out.append(torch.cat(q))
     return out
+
+
+# Schwarz threshold of the direct 4-center walk: a shell quartet is skipped
+# when Q_ab * Q_cd falls below it (cctpu's energy_2e_grad_eager)
+SCREEN_TOL_4C = 1e-13
+
+
+def walk_4c(basis: BasisSet, coords, budget: int = CHUNK_BUDGET,
+            screen: bool = True):
+    """The quartet-kernel chunks of the unique shell quartets (ab|cd): pair
+    classes in cctpu's order (class i with classes i, i+1, ...), shell
+    pairs i <= j within a class, pair indices q1 <= q2 within one class,
+    cut into chunks of ``class_chunk(..., budget)`` quartets (the last one
+    ragged). With ``screen``, the quartets that the Schwarz bound at
+    ``coords`` puts below ``SCREEN_TOL_4C`` are skipped (the direct energy
+    and gradient); the in-core build keeps every quartet. The one walk of
+    ``build_eri_incore``, ``energy_2e_direct`` and the direct nuclear
+    gradient.
+
+    Yields (ls, args, (A, B, C, D), mult): ``args(c)`` is the kernel's
+    argument tuple with the centers gathered from ``c``; A..D [nq, s] are
+    the AO indices of the blocks' four axes; ``mult`` [nq] is the 8-fold
+    multiplicity w_ab * w_cd * w_bk (2 for a pair of two shells, 2 for two
+    different pairs) with which a quartet stands for its images."""
+    dev, dt = coords.device, coords.dtype
+    pcs = pair_classes(basis)
+    qs = None
+    if screen:
+        with torch.no_grad():
+            qs = [q.cpu().numpy() for q in schwarz_q(pcs, coords.detach())]
+    sides = [pc.shells(dev, dt) for pc in pcs]
+    for i1, p1 in enumerate(pcs):
+        for i2 in range(i1, len(pcs)):
+            p2 = pcs[i2]
+            q1, q2 = shell_pairs(p1.n, p2.n, i1 == i2)
+            if qs is not None:
+                keep = qs[i1][q1] * qs[i2][q2] > SCREEN_TOL_4C
+                q1, q2 = q1[keep], q2[keep]
+                if len(q1) == 0:
+                    continue
+            w1 = np.where(p1.ia[q1] == p1.ib[q1], 1.0, 2.0) \
+                if p1.la == p1.lb else np.full(len(q1), 2.0)
+            w2 = np.where(p2.ia[q2] == p2.ib[q2], 1.0, 2.0) \
+                if p2.la == p2.lb else np.full(len(q2), 2.0)
+            wbk = np.where((i1 == i2) & (q1 == q2), 1.0, 2.0)
+            mult = torch.as_tensor(w1 * w2 * wbk, dtype=dt, device=dev)
+            q1, q2 = (torch.as_tensor(q, device=dev) for q in (q1, q2))
+            ls = (p1.la, p1.lb, p2.la, p2.lb)
+            chunk = class_chunk(ls, p1.exps_a.shape[1], p1.exps_b.shape[1],
+                                p2.exps_a.shape[1], p2.exps_b.shape[1],
+                                budget=budget)
+            (shA, shB), (shC, shD) = sides[i1], sides[i2]
+            for s in range(0, len(q1), chunk):
+                j1, j2 = q1[s:s + chunk], q2[s:s + chunk]
+
+                def args(c, j1=j1, j2=j2, shA=shA, shB=shB, shC=shC,
+                         shD=shD):
+                    return (*shA.at(j1, c), *shB.at(j1, c),
+                            *shC.at(j2, c), *shD.at(j2, c))
+
+                rows = (shA.rows(j1), shB.rows(j1), shC.rows(j2),
+                        shD.rows(j2))
+                yield ls, args, rows, mult[s:s + chunk]
+
+
+def build_eri_incore(basis: BasisSet, coords,
+                     omega: Optional[float] = None) -> torch.Tensor:
+    """The full (ij|kl) tensor [nao, nao, nao, nao] in f64 on ``coords``'
+    device: every unique quartet of ``walk_4c`` (no screening, as cctpu),
+    its block written to all 8 symmetric places. Plain writes, no adds:
+    where index sets repeat (a pair of one shell with itself), the writes
+    to one address come in a fixed order."""
+    if omega is not None:
+        raise NotImplementedError(
+            "the erf-attenuated in-core ERIs (omega) come with the "
+            "range-separated functionals (ROADMAP.md queue 1 item 10)")
+    n = basis.nao
+    out = torch.zeros(n ** 4, dtype=coords.dtype, device=coords.device)
+    for ls, args, (A, B, C, D), _ in walk_4c(basis, coords, screen=False):
+        blocks = eri_quartet_kernel(ls, *args(coords)).reshape(-1)
+        a = A[:, :, None, None, None]
+        b = B[:, None, :, None, None]
+        c = C[:, None, None, :, None]
+        d = D[:, None, None, None, :]
+        for i, j, k, l in ((a, b, c, d), (b, a, c, d), (a, b, d, c),
+                           (b, a, d, c), (c, d, a, b), (d, c, a, b),
+                           (c, d, b, a), (d, c, b, a)):
+            out[(((i * n + j) * n + k) * n + l).reshape(-1)] = blocks
+    return out.reshape(n, n, n, n)
+
+
+def e2_densities(dm, k_weight: float):
+    """(Dt, Dks, kw) of ``chunk_energy_2e``: the total density, the
+    exchange densities (the dm itself, or its two spins) and the exchange
+    weight (``k_weight``, doubled for spin densities)."""
+    if dm.ndim == 3:
+        return dm[0] + dm[1], dm, 2.0 * k_weight
+    return dm, dm[None], k_weight
+
+
+def chunk_energy_2e(blocks, rows, mult, Dt, Dks, kw: float):
+    """A chunk's share of E_2e: sum_q mult_q [1/2 (ab|cd) Dt_ab Dt_cd
+    - kw/8 sum_s (ab|cd) (Ds_ac Ds_bd + Ds_ad Ds_bc)] over its blocks
+    [nq, sa, sb, sc, sd] with AO indices ``rows`` (A, B, C, D)."""
+    A, B, C, D = rows
+
+    def g(M, X, Y):
+        return M[X[:, :, None], Y[:, None, :]]
+
+    mb = mult[:, None, None, None, None] * blocks
+    e = 0.5 * torch.einsum("qabcd,qab,qcd->", mb, g(Dt, A, B), g(Dt, C, D))
+    if kw:
+        for Dk in Dks:
+            e = e - 0.125 * kw * (
+                torch.einsum("qabcd,qac,qbd->", mb, g(Dk, A, C), g(Dk, B, D))
+                + torch.einsum("qabcd,qad,qbc->", mb, g(Dk, A, D),
+                               g(Dk, B, C)))
+    return e
+
+
+def energy_2e_direct(basis: BasisSet, coords, dm, k_weight: float):
+    """E_2e = 1/2 Tr[D J(D)] - k_weight/4 Tr[D K(D)] for a total density
+    [nao, nao] (k_weight 1 is Hartree-Fock exchange), or 1/2 Tr[D J(D)] -
+    k_weight/2 sum_s Tr[D_s K(D_s)] for spin densities [2, nao, nao]:
+    ``walk_4c``'s screened unique quartets, each block contracted with the
+    gathered density blocks and never stored. Differentiable in
+    ``coords``."""
+    Dt, Dks, kw = e2_densities(dm, k_weight)
+    e = torch.zeros((), dtype=dm.dtype, device=dm.device)
+    for ls, args, rows, mult in walk_4c(basis, coords):
+        e = e + chunk_energy_2e(eri_quartet_kernel(ls, *args(coords)), rows,
+                                mult, Dt, Dks, kw)
+    return e

@@ -7,8 +7,9 @@ eagerly in torch on the molecule's device; the Python loop checks the
 convergence scalars. Supports the ``kernel(dm0=dm)`` warm start. UHF keeps
 the two spin densities stacked as [2, nao, nao].
 
-Only density-fitted J/K (``density_fit=True``) is ported so far; ROHF,
-in-core and Cholesky J/K and the mixed/f32 precision modes are later
+J/K comes from the in-core ERI tensor (``density_fit`` False or None),
+the pivoted-Cholesky factor (``"cd"``) or dense density fitting (True).
+ROHF, pair-compressed DF and the mixed/f32 precision modes are later
 slices (ROADMAP.md queue 1).
 """
 
@@ -28,7 +29,41 @@ from cctpu_torch.core.basis import (BasisSet, build_basis, get_basis_text,
 from cctpu_torch.core.molecule import Molecule
 from cctpu_torch.device import DTYPE, default_device
 from cctpu_torch.ints.one_electron import build_int1e_eager
+from cctpu_torch.ints.two_electron import build_eri_incore
 from cctpu_torch.scf.diis import diis_init, diis_update
+
+
+class IncoreJK:
+    """J/K from the full in-core ERI tensor, as two matrix products over
+    its [nao^2, nao^2] views: J_ij = sum_kl (ij|kl) D_kl on the tensor as
+    built, K_ij = sum_kl (ik|jl) D_kl on a copy in exchange order made once
+    here (twice the tensor's memory, and no copy per call). cctpu computes
+    the same einsums outside any Pallas kernel, so no kernel of the port
+    runs here."""
+
+    def __init__(self, mol: Molecule, coords: torch.Tensor):
+        self._set(build_eri_incore(mol.basis_set, coords))
+
+    @classmethod
+    def from_eri(cls, eri: torch.Tensor) -> "IncoreJK":
+        """A builder on a given (ij|kl) tensor [nao, nao, nao, nao]
+        (another package's, say) with no build."""
+        jk = cls.__new__(cls)
+        jk._set(eri)
+        return jk
+
+    def _set(self, eri):
+        n2 = eri.shape[0] * eri.shape[1]
+        self.eri = eri.reshape(n2, n2)
+        self.eri_k = eri.permute(0, 2, 1, 3).reshape(n2, n2)
+
+    def __call__(self, dm, with_k: bool = True, cocc=None):
+        """(J, K) of a [nao, nao] or [2, nao, nao] dm (K None without
+        ``with_k``); ``cocc`` is not needed."""
+        d = dm.reshape(-1, dm.shape[-1] ** 2).T
+        J = (self.eri @ d).T.reshape(dm.shape)
+        K = (self.eri_k @ d).T.reshape(dm.shape) if with_k else None
+        return J, K
 
 
 def _aufbau_configuration(z: int) -> dict:
@@ -140,7 +175,7 @@ class SCFBase:
 
     restricted = True
 
-    def __init__(self, mol: Molecule, density_fit: bool = False,
+    def __init__(self, mol: Molecule, density_fit=False,
                  device=None, **opts):
         self.mol = mol.build() if mol._basis_set is None else mol
         self.density_fit = density_fit
@@ -174,15 +209,22 @@ class SCFBase:
         return self._ints
 
     def get_jk_builder(self):
+        """The J/K builder of ``density_fit``, built on first use: in-core
+        for False or None, pivoted Cholesky for "cd", dense DF for True."""
         if self._jk is None:
-            if self.density_fit is not True:
+            df = self.density_fit
+            if df == "compressed":
                 raise NotImplementedError(
-                    f"density_fit={self.density_fit!r}: only dense density "
-                    "fitting (density_fit=True) is ported; in-core, "
-                    "Cholesky and compressed J/K are later slices "
-                    "(ROADMAP.md queue 1 items 9 and 19)")
-            from cctpu_torch.ints.df import DFJK
-            self._jk = DFJK(self.mol, self.coords)
+                    "pair-compressed density fitting is not ported "
+                    "(ROADMAP.md queue 1 item 19)")
+            if df == "cd":
+                from cctpu_torch.ints.df import CholeskyJK
+                self._jk = CholeskyJK(self.mol, self.coords)
+            elif df:
+                from cctpu_torch.ints.df import DFJK
+                self._jk = DFJK(self.mol, self.coords)
+            else:
+                self._jk = IncoreJK(self.mol, self.coords)
         return self._jk
 
     # -- model-specific pieces ---------------------------------------------

@@ -35,7 +35,7 @@ def main(argv=None):
                         grid_level=args.grid_level)
         out.print(f"\nTotal energy: {e:.10f} Ha  "
                   f"({e * 627.5094740631:.4f} kcal/mol)")
-        out.print(f"converged: {mf.converged}")
+        out.print(f"converged: {mf.converged}  cycles: {mf.n_cycles}")
 
         homo, lumo = homo_lumo(mf)
         out.print(f"\nHOMO: {homo:.6f} Ha ({homo * HARTREE2EV:.3f} eV)")

@@ -2,7 +2,8 @@
 
 Port of ``cctpu/workflows/common.py`` for the methods the port has
 (``hf``, ``blyp`` and ``b3lyp``; RHF/RKS for closed shells, UHF/UKS for
-``spin != 0``; density fitted). The flag contract,
+``spin != 0``; in-core J/K up to nao 160, density fitted above it or with
+``--density-fit``). The flag contract,
 the dual short/log reports and their naming scheme
 ``{smiles}_{script}_{method}_{basis}_{short|log}_report.txt`` are the
 reference's.
@@ -59,10 +60,13 @@ def add_common_args(p: argparse.ArgumentParser, default_method="b3lyp",
                    help="accepted for reference CLI compatibility (compute "
                         "runs on the CUDA device when one is present)")
     p.add_argument("--density-fit", action="store_true", default=None,
-                   help="density fitting (the only J/K the port has; "
-                        "default: auto by size, in-core below nao 160)")
+                   help="force density fitting (default: auto by size, "
+                        "in-core J/K up to nao 160)")
     p.add_argument("--output-dir", default=".")
     p.add_argument("--grid-level", type=int, default=3)
+    p.add_argument("--scf-cache", default=None, metavar="DIR",
+                   help="warm-start SCFs from, and store converged ones "
+                        "in, .npz checkpoints under DIR")
     return p
 
 
@@ -91,10 +95,6 @@ def make_scf(mol: Molecule, method: str, density_fit: Optional[bool] = None,
     m = method.lower()
     if density_fit is None:
         density_fit = mol.nao > 160
-    if not density_fit:
-        raise NotImplementedError(
-            f"nao {mol.nao} <= 160 selects in-core J/K, which is not ported "
-            "yet (ROADMAP.md queue 1 item 9); pass --density-fit")
     if m == "mp2":
         raise NotImplementedError("MP2 is not ported yet (ROADMAP.md "
                                   "queue 1 item 15)")
@@ -112,13 +112,21 @@ def make_scf(mol: Molecule, method: str, density_fit: Optional[bool] = None,
 
 # Global run context set once per workflow invocation (open_reports)
 PHASES = None      # utils.profiling.PhaseTimer | None
+_SCF_CACHE = None  # utils.chkfile.SCFCache | None
 
 
 def configure_run(args):
-    """Install the phase timer for this workflow run."""
-    global PHASES
+    """Install the phase timer and, with ``--scf-cache``, the SCF cache for
+    this workflow run."""
+    global PHASES, _SCF_CACHE
     from cctpu_torch.utils.profiling import PhaseTimer
     PHASES = PhaseTimer()
+    cache_dir = getattr(args, "scf_cache", None)
+    if cache_dir:
+        from cctpu_torch.utils.chkfile import SCFCache
+        _SCF_CACHE = SCFCache(cache_dir)
+    else:
+        _SCF_CACHE = None
     return PHASES
 
 
@@ -130,10 +138,15 @@ def report_phases(log=print):
 
 def run_scf(mol, method, density_fit=None, dm0=None, log=None, **opts):
     """SCF with the fallback ladder: preferred settings -> damped/level-
-    shifted retry from the unconverged density."""
+    shifted retry from the unconverged density. Warm-starts from, and
+    stores a converged SCF to, the configured SCF cache."""
     timer = (PHASES.phase(f"scf:{method}") if PHASES is not None
              else contextlib.nullcontext())
     with timer:
+        if dm0 is None and _SCF_CACHE is not None:
+            dm0 = _SCF_CACHE.get(mol, method)
+            if dm0 is not None and log:
+                log("SCF warm start from checkpoint cache")
         mf = make_scf(mol, method, density_fit, **opts)
         e = mf.kernel(dm0=dm0)
         if not mf.converged:
@@ -145,6 +158,8 @@ def run_scf(mol, method, density_fit=None, dm0=None, log=None, **opts):
             e2 = mf2.kernel(dm0=mf.make_rdm1())
             if mf2.converged:
                 mf, e = mf2, e2
+        if _SCF_CACHE is not None and mf.converged:
+            _SCF_CACHE.put(mf, method)
     return mf, e
 
 

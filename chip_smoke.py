@@ -47,13 +47,37 @@ Run from the root of a checkout. Phases, one printed line or more each:
 5. the ``energy`` CLI on phenol's SMILES with ``--density-fit``;
 5b. the ``energy`` CLI on the phenoxyl radical with ``--spin 1``;
 6. water DF-RHF, water DF-B3LYP and NH2 DF-UB3LYP (6-31G*, grid level 2):
-   SCF and gradient against cctpu's CPU-f64 gradients (<= 1e-7 Ha/bohr).
+   SCF and gradient against cctpu's CPU-f64 gradients (<= 1e-7 Ha/bohr);
+7. the 1e-8 Ha contract: water RHF/6-31G with Cholesky J/K
+   (``density_fit="cd"``) at conv_tol 1e-12 against cctpu's host-f64
+   oracle, the fused kernel every cycle; NH2 UB3LYP/6-31G* with Cholesky
+   J/K (DF-J every cycle, DF-K twice) against its in-core SCF (<= 1e-8);
+7b. phenol B3LYP/6-31G* in-core (grid level 2, conv_tol 1e-10) against
+   cctpu's CPU-f64 in-core oracle (<= 1e-8 Ha): the ERI build's seconds
+   and bytes, peak memory, s/cycle, no J/K kernel launched, and the DF
+   fitting error |E_incore - E_DF| (printed, not gated);
+7c. the same SCF with Cholesky J/K against 7b (<= 1e-8 Ha), the number
+   of Cholesky vectors K, the fused kernel every cycle; the fused, DF-J
+   (one and two densities) and DF-K kernels against their plain versions
+   at this SCF's factor [K, nao, nao] (f64 <= 1e-12, repeats bitwise) with
+   kernel, plain, library and bound times;
+7d. the direct nuclear gradient of 7b's SCF, as 3e (no oracle: central
+   differences, invariance, bitwise repeat, s/iter), and that of 7c's
+   Cholesky SCF against it (<= 1e-7 Ha/bohr);
+7e. phase 6's three cases in-core against cctpu's CPU-f64 in-core
+   gradients (<= 1e-7 Ha/bohr; ``scripts/make_incore_oracles.py``);
+7f. the ``energy`` CLI without ``--density-fit`` (the default route,
+   in-core: no J/K kernel) on phenol and the phenoxyl radical, then on
+   phenol twice with ``--scf-cache``: the second run warm-starts, takes
+   fewer cycles and agrees (<= 1e-10 Ha).
 
 Any failure raises: the script then exits non-zero without its last line.
 The line before the last lists each kernel with its launches on the main
-path, its error, its time beside its plain version's and its bound; the
-last line is ``{"ok": true, "device": {...}}``. Needs no network and
-imports nothing of JAX or of the JAX package.
+path, its error, its time beside its plain version's and its bound, and
+its launches on the Cholesky phases (7, 7c) and its numbers at 7c's
+factor; a ``clock`` line after each group of phases gives the seconds
+since the start. The last line is ``{"ok": true, "device": {...}}``.
+Needs no network and imports nothing of JAX or of the JAX package.
 """
 
 import os
@@ -86,6 +110,9 @@ PHENOXYL_E_CONV = -306.8112830449618       # DF-UB3LYP, spin 1
 H_ATOM_E_CONV = -0.5002727849165448        # DF-UB3LYP, spin 1 (nbeta 0)
 PHENOL_BLYP_E_CONV = -307.3327949020669    # DF-BLYP (RKS, pure GGA)
 HARTREE2KCAL = 627.5094740631
+# cctpu's host-f64 water RHF/6-31G energy with Cholesky J/K (tol 1e-9) at
+# conv_tol 1e-12 (scripts/sad_oracles.json, make_oracles.py --cd)
+WATER_CD_631G_E = -75.98397447271235
 
 # cctpu's CPU-f64 DF nuclear gradients (Ha/bohr, atoms in the order of
 # the geometries of cctpu_torch/utils/measure.py), as
@@ -143,6 +170,31 @@ GRAD_ORACLES = {
         [-5.999852481841e-14, 2.533398945537e-03, -1.599865692949e-16],
         [8.656971849588e-04, 3.707586081474e-04, -1.714855791982e-17],
         [-1.764181194071e-03, -2.959050883824e-03, 2.001100869891e-16],
+    ],
+}
+
+# cctpu's CPU-f64 in-core energies and gradients (Ha, Ha/bohr; atoms in the
+# order of the geometries of cctpu_torch/utils/measure.py), as
+# scripts/make_incore_oracles.py prints them: cctpu's own in-core SCF
+# (density_fit=False) on the CPU, f64, 6-31G*, grid level 2; the phenol
+# energy at conv_tol 1e-10, the gradients at conv_tol 1e-12 and
+# conv_tol_grad 1e-8 with the direct 2e term (energy_2e_grad_eager)
+INCORE_ORACLES = {
+    "phenol_b3lyp_e": -307.4579388407727,  # 13 cycles
+    "water_rhf": [  # E -76.00910803237772, 13 cycles
+        [6.069051815553e-18, -5.593012500372e-16, 1.533057327717e-02],
+        [-1.670947013622e-16, 7.549448002473e-03, -7.665286638586e-03],
+        [1.610256495467e-16, -7.549448002474e-03, -7.665286638585e-03],
+    ],
+    "water_b3lyp": [  # E -76.40680806839366, 12 cycles
+        [1.593011044092e-16, -8.558997566528e-16, -1.334051657107e-02],
+        [1.547310024151e-16, -8.075190183554e-03, 6.670258285535e-03],
+        [-1.112955319600e-16, 8.075190183554e-03, 6.670258285535e-03],
+    ],
+    "nh2_ub3lyp": [  # E -55.87099286186214, 11 cycles
+        [-4.989477434641e-16, -9.008847994253e-16, 1.051038136688e-02],
+        [-2.406550481914e-17, -4.967530979394e-03, -5.255190683439e-03],
+        [-1.949822515900e-17, 4.967530979396e-03, -5.255190683440e-03],
     ],
 }
 
@@ -278,14 +330,20 @@ def phase_kernel_j_k(dev):
             torch.cuda.empty_cache()
 
 
-def run_scf(cls, atoms, dev, spin=0, **kw):
+def run_scf(cls, atoms, dev, spin=0, density_fit=True, basis="6-31g*",
+            conv_tol=1e-10, **kw):
     """One SCF through the Python API with the kernels' launch counts reset
-    just before and read just after; returns (mf, E, seconds, counts)."""
+    just before and read just after; returns (mf, E, info). ``df_build_s``
+    is the J/K builder's build (DF tensors, the in-core tensor or the
+    Cholesky factor); ``peak_mem_GB`` the card's peak over set-up and
+    SCF."""
     import torch
     from cctpu_torch.core.molecule import Molecule
-    mol = Molecule.from_atoms(atoms, spin=spin, basis="6-31g*")
+    mol = Molecule.from_atoms(atoms, spin=spin, basis=basis)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.time()
-    mf = cls(mol, density_fit=True, grid_level=2, conv_tol=1e-10,
+    mf = cls(mol, density_fit=density_fit, grid_level=2, conv_tol=conv_tol,
              max_cycle=60, device=dev, **kw)
     t_grid = time.time() - t0
     t0 = time.time()
@@ -306,9 +364,66 @@ def run_scf(cls, atoms, dev, spin=0, **kw):
     info = {"E": e, "converged": mf.converged, "cycles": mf.n_cycles,
             "s_per_cycle": t_scf / mf.n_cycles, "scf_s": t_scf,
             "grids_s": t_grid, "df_build_s": t_df, "ao_cache_s": t_ao,
-            "nao": mol.nao, "naux": int(mf._jk.B.shape[0]),
-            "launches": launches}
+            "nao": mol.nao, "density_fit": density_fit,
+            "launches": launches,
+            "peak_mem_GB": torch.cuda.max_memory_allocated(dev) / 1e9}
+    if hasattr(mf._jk, "B"):
+        info["naux"] = int(mf._jk.B.shape[0])
     return mf, e, info
+
+
+def scf_kernels(mf, names) -> dict:
+    """The named kernels against their plain versions at an SCF's own
+    factor B [naux, nao, nao], density and occupied factor (f64, <= 1e-12
+    relative, repeats bitwise equal), with kernel / plain / library /
+    bound times. ``df_j`` takes two densities: an open-shell SCF's two
+    spins, else the density and a second one made from it; ``df_j_nset1``
+    the (alpha) density alone; ``df_k`` the (alpha) occupied factor."""
+    import torch
+    from cctpu_torch.ops import df_j, df_jk, df_k
+    B = mf._jk.B
+    dm = mf.dm.contiguous()
+    C = mf._factor_cocc(dm)
+    if dm.dim() == 3:
+        D1, D2, C = dm[0], dm, C[0]
+    else:
+        D1, D2 = dm, torch.stack([dm, dm @ dm / dm.abs().max()]).contiguous()
+    naux, nao, nocc = int(B.shape[0]), int(B.shape[1]), int(C.shape[1])
+    calls = {
+        "df_jk_fused": (lambda: df_jk.df_jk_fused(B, D1, C),
+                        lambda: df_jk.df_jk_reference(B, D1, C), None,
+                        work("df_jk_fused", naux, nao, nocc)),
+        "df_j": (lambda: df_j.df_j_fast(B, D2),
+                 lambda: df_j.df_j_reference(B, D2),
+                 lambda: torch.einsum("pij,sij,pkl->skl", B, D2, B),
+                 work("df_j", naux, nao, nset=2)),
+        "df_j_nset1": (lambda: df_j.df_j_fast(B, D1),
+                       lambda: df_j.df_j_reference(B, D1),
+                       lambda: torch.einsum("pij,ij,pkl->kl", B, D1, B),
+                       work("df_j", naux, nao, nset=1)),
+        "df_k": (lambda: df_k.df_k_fast(B, C),
+                 lambda: df_k.df_k_reference(B, C), lambda: k_library(B, C),
+                 work("df_k", naux, nao, nocc))}
+    out = {}
+    for name in names:
+        kern, plain, lib, wk = calls[name]
+        got, again, ref = kern(), kern(), plain()
+        torch.cuda.synchronize()
+        got, again, ref = (x if isinstance(x, tuple) else (x,)
+                           for x in (got, again, ref))
+        rel = max(rel_err(a, b) for a, b in zip(got, ref))
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+        out[name] = {"max_abs_err": max(float((a - b).abs().max())
+                                        for a, b in zip(got, ref)),
+                     "rel_err": rel, "bitwise_repeat": bitwise,
+                     **alternated_ms(kern, plain, 20, library=lib),
+                     **bound(*wk)}
+        if name.startswith("df_j"):
+            out[name]["plan"] = df_j.LAST_PLAN["kind"]
+        check(rel <= TOL["float64"] and bitwise,
+              f"{name} at {mf.__class__.__name__}'s [{naux}, {nao}, {nocc}] "
+              f"factor: rel {rel:.2e}, bitwise {bitwise}")
+    return out
 
 
 def phase_phenol(dev):
@@ -344,41 +459,20 @@ def phase_phenoxyl(dev):
     check(df_j.LAST_PLAN["kind"] == "one_pass",
           f"phenoxyl's SCF ran df_j's {df_j.LAST_PLAN['kind']} plan")
 
-    B = mf._jk.B
-    dm = mf.dm.contiguous()
-    cocc = mf._factor_cocc(dm)
-    naux, nao = int(B.shape[0]), int(B.shape[1])
-    J, Jr = df_j.df_j_fast(B, dm), df_j.df_j_reference(B, dm)
-    K, Kr = df_k.df_k_fast(B, cocc[0]), df_k.df_k_reference(B, cocc[0])
-    torch.cuda.synchronize()
-    out = {
-        "df_j": {"max_abs_err": float((J - Jr).abs().max()),
-                 "rel_err": rel_err(J, Jr),
-                 **alternated_ms(
-                     lambda: df_j.df_j_fast(B, dm),
-                     lambda: df_j.df_j_reference(B, dm), 20,
-                     library=lambda: torch.einsum("pij,sij,pkl->skl",
-                                                  B, dm, B)),
-                 **bound(*work("df_j", naux, nao, nset=2))},
-        "df_k": {"max_abs_err": float((K - Kr).abs().max()),
-                 "rel_err": rel_err(K, Kr),
-                 **alternated_ms(
-                     lambda: df_k.df_k_fast(B, cocc[0]),
-                     lambda: df_k.df_k_reference(B, cocc[0]), 20,
-                     library=lambda: k_library(B, cocc[0])),
-                 **bound(*work("df_k", naux, nao, int(cocc[0].shape[1])))}}
+    out = scf_kernels(mf, ("df_j", "df_k"))
     for name in ("df_j", "df_k"):
         out[name]["launches"] = n[name]
-    emit({"phase": "phenoxyl_kernel_time", "naux": naux, "nao": nao,
-          "nocc": [int(c.shape[1]) for c in cocc],
+    B, dm = mf._jk.B, mf.dm.contiguous()
+    cocc = mf._factor_cocc(dm)
+    J, Jr = df_j.df_j_fast(B, dm), df_j.df_j_reference(B, dm)
+    Kr = df_k.df_k_reference(B, cocc[0])
+    emit({"phase": "phenoxyl_kernel_time", "naux": int(B.shape[0]),
+          "nao": int(B.shape[1]), "nocc": [int(c.shape[1]) for c in cocc],
           "opt_einsum": torch.backends.opt_einsum.is_available(),
           "rel_err_K_library": rel_err(k_library(B, cocc[0]), Kr),
           "rel_err_J_per_spin": [rel_err(J[s], Jr[s]) for s in range(2)],
           "max_abs_J": float(Jr.abs().max()), **out,
           **wk_report(df_k, "df_k")})
-    for name in ("df_j", "df_k"):
-        check(out[name]["rel_err"] <= TOL["float64"],
-              f"{name} disagrees at phenoxyl's tensors")
     return e, out, mf, info
 
 
@@ -425,7 +519,7 @@ def fd_gradient(mf, comps, h=1e-3):
         for sgn in (1.0, -1.0):
             c = mol.coords.copy()
             c[ia, ax] += sgn * h
-            m2 = type(mf)(mol.with_coords(c), density_fit=True,
+            m2 = type(mf)(mol.with_coords(c), density_fit=mf.density_fit,
                           grid_level=2, conv_tol=1e-12, max_cycle=60,
                           device=mf.device, **kw)
             e.append(m2.kernel(dm0=mf.dm))
@@ -466,7 +560,8 @@ def phase_gradient(tag, mf, info, fd_comps, oracle):
     inv = float(np.abs(g.sum(0)).max())
     fd = fd_gradient(mf, fd_comps) if fd_comps else []
     fd_err = [abs(float(g[ia, ax]) - f) for (ia, ax), f in zip(fd_comps, fd)]
-    orc_err = float(np.abs(g - np.asarray(oracle)).max())
+    orc_err = None if oracle is None \
+        else float(np.abs(g - np.asarray(oracle)).max())
     res = {"phase": tag, "card": card_line(), "E": mf.e_tot,
            "cycles_to_1e-12": mf.n_cycles, "grad_s_first": s1,
            "grad_s": s2, "terms_s_first": terms1, "terms_s": terms2,
@@ -485,24 +580,28 @@ def phase_gradient(tag, mf, info, fd_comps, oracle):
     check(inv <= 1e-8, f"{tag}: max |sum_A g_A| {inv:.2e} > 1e-8")
     check(max(fd_err, default=0.0) <= 1e-6,
           f"{tag}: |g - FD| {fd_err} > 1e-6")
-    check(orc_err <= 1e-7,
+    check(orc_err is None or orc_err <= 1e-7,
           f"{tag}: |g - cctpu| {orc_err} > 1e-7")
     check(not any(launches.values()),
           f"{tag}: the gradient launched J/K kernels {launches}")
     return res
 
 
-def phase_small_gradients(dev):
-    """Water DF-RHF, water DF-B3LYP and NH2 DF-UB3LYP (6-31G*, grid level
-    2): SCF and gradient on the card against cctpu's CPU-f64 gradients."""
+def phase_small_gradients(dev, density_fit=True):
+    """Water RHF, water B3LYP and NH2 UB3LYP (6-31G*, grid level 2), DF or
+    in-core: SCF and gradient on the card against cctpu's CPU-f64
+    gradients."""
     from cctpu_torch.dft.rks import RKS, UKS
     from cctpu_torch.scf.hf import RHF
+    route, oracles = ("", GRAD_ORACLES) if density_fit \
+        else ("incore_", INCORE_ORACLES)
     for tag, cls, atoms, spin, kw in (
             ("water_rhf", RHF, WATER, 0, {}),
             ("water_b3lyp", RKS, WATER, 0, dict(xc="b3lyp")),
             ("nh2_ub3lyp", UKS, NH2, 1, dict(xc="b3lyp"))):
-        mf, _, _ = run_scf(cls, atoms, dev, spin=spin, **kw)
-        phase_gradient(f"gradient_{tag}", mf, None, [], GRAD_ORACLES[tag])
+        mf, _, _ = run_scf(cls, atoms, dev, spin=spin,
+                           density_fit=density_fit, **kw)
+        phase_gradient(f"gradient_{route}{tag}", mf, None, [], oracles[tag])
 
 
 def phase_c16h34(dev):
@@ -572,14 +671,14 @@ def phase_c16h34(dev):
 
 def phase_cli(smiles, extra, tag, need):
     """The ``energy`` CLI through cli.main; ``need`` names the kernel that
-    must have launched."""
+    must have launched, or is None where none may (the in-core route)."""
     from cctpu_torch.workflows import cli
     reset_counts()
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.time()
         rc = cli.main(["energy", "--smiles", smiles, "--method", "b3lyp",
-                       "--basis", "6-31g*", "--density-fit",
-                       "--grid-level", "2", *extra, "--output-dir", tmp])
+                       "--basis", "6-31g*", "--grid-level", "2", *extra,
+                       "--output-dir", tmp])
         wall = time.time() - t0
         reports = [f for f in os.listdir(tmp)
                    if f.endswith("_short_report.txt")]
@@ -591,7 +690,135 @@ def phase_cli(smiles, extra, tag, need):
     emit({"phase": tag, "rc": rc, "converged": converged, "launches": n,
           "wall_s": wall})
     check(rc == 0 and converged, f"{tag}: energy CLI did not converge")
-    check(n[need] > 0, f"{tag}: energy CLI never reached {need}")
+    if need is None:
+        check(not any(n.values()), f"{tag}: in-core CLI launched {n}")
+    else:
+        check(n[need] > 0, f"{tag}: energy CLI never reached {need}")
+
+
+def phase_contract(dev):
+    """7. The 1e-8 Ha contract on the card: water RHF/6-31G with Cholesky
+    J/K at conv_tol 1e-12 against cctpu's host-f64 oracle, the fused kernel
+    launched every cycle; NH2 UB3LYP/6-31G* with Cholesky J/K (DF-J and
+    DF-K on the factor) against the in-core SCF (<= 1e-8 Ha). Returns the
+    launches of the two Cholesky SCFs."""
+    from cctpu_torch.dft.rks import UKS
+    from cctpu_torch.scf.hf import RHF
+    mf, e, info = run_scf(RHF, WATER, dev, density_fit="cd", basis="6-31g",
+                          conv_tol=1e-12)
+    de = abs(e - WATER_CD_631G_E)
+    n = info["launches"]
+    emit({"phase": "water_rhf_631g_cd", "abs_dE_vs_oracle": de, **info})
+    check(mf.converged and de <= 1e-8, f"water Cholesky |dE| {de:.3e}")
+    check(n["df_jk_fused"] >= mf.n_cycles and n["df_j"] == n["df_k"] == 0,
+          f"water Cholesky launches {n} in {mf.n_cycles} cycles")
+    mf_cd, e_cd, info_cd = run_scf(UKS, NH2, dev, spin=1, density_fit="cd",
+                                   xc="b3lyp")
+    mf_in, e_in, info_in = run_scf(UKS, NH2, dev, spin=1, density_fit=False,
+                                   xc="b3lyp")
+    n_cd, n_in = info_cd["launches"], info_in["launches"]
+    emit({"phase": "nh2_ub3lyp_cd_vs_incore", "abs_dE": abs(e_cd - e_in),
+          "cd": info_cd, "incore": info_in})
+    check(mf_cd.converged and mf_in.converged and abs(e_cd - e_in) <= 1e-8,
+          f"NH2 |E_cd - E_incore| {abs(e_cd - e_in):.3e} > 1e-8")
+    check(n_cd["df_j"] >= mf_cd.n_cycles and n_cd["df_k"] >= 2 *
+          mf_cd.n_cycles and n_cd["df_jk_fused"] == 0 and
+          not any(n_in.values()), f"NH2 launches {n_cd} / {n_in}")
+    return {k: n[k] + n_cd[k] for k in n}
+
+
+def phase_incore_phenol(dev, e_df):
+    """7b. Phenol B3LYP/6-31G* in-core (grid level 2, conv_tol 1e-10)
+    against cctpu's CPU-f64 in-core oracle (<= 1e-8 Ha): the tensor's
+    build seconds and bytes, peak memory, s/cycle, no J/K kernel launched,
+    and the DF fitting error |E_incore - E_DF| (printed, not gated)."""
+    from cctpu_torch.dft.rks import RKS
+    mf, e, info = run_scf(RKS, PHENOL, dev, density_fit=False, xc="b3lyp")
+    de = abs(e - INCORE_ORACLES["phenol_b3lyp_e"])
+    n = mf.mol.nao
+    emit({"phase": "phenol_b3lyp_631gs_incore", "abs_dE_vs_oracle": de,
+          "eri_GB": n ** 4 * 8 / 1e9, "eri_and_exchange_copy_GB":
+          2 * n ** 4 * 8 / 1e9, "abs_E_incore_minus_E_df": abs(e - e_df),
+          **info})
+    check(mf.converged and de <= 1e-8, f"phenol in-core |dE| {de:.3e}")
+    check(not any(info["launches"].values()),
+          f"phenol in-core launched {info['launches']}")
+    return mf, info
+
+
+def phase_cholesky_phenol(dev, e_incore):
+    """7c. The phenol SCF of 7b with Cholesky J/K: |E_cd - E_incore| <=
+    1e-8 Ha (the contract at the north star's molecule), K, the fused
+    kernel launched every cycle; then the kernels at its factor."""
+    from cctpu_torch.dft.rks import RKS
+    mf, e, info = run_scf(RKS, PHENOL, dev, density_fit="cd", xc="b3lyp")
+    de = abs(e - e_incore)
+    n = info["launches"]
+    emit({"phase": "phenol_b3lyp_631gs_cd", "abs_E_cd_minus_E_incore": de,
+          "cholesky_K": info["naux"], "cholesky_build_s": info["df_build_s"],
+          **info})
+    check(mf.converged and de <= 1e-8, f"phenol |E_cd - E_incore| {de:.3e}")
+    check(n["df_jk_fused"] >= mf.n_cycles and n["df_j"] == n["df_k"] == 0,
+          f"phenol Cholesky launches {n} in {mf.n_cycles} cycles")
+    out = scf_kernels(mf, ("df_jk_fused", "df_j", "df_j_nset1", "df_k"))
+    B, C = mf._jk.B, mf._factor_cocc(mf.dm)
+    emit({"phase": "cholesky_kernel_time",
+          "shape": [int(B.shape[0]), int(B.shape[1]), int(C.shape[1])],
+          **out})
+    return mf, n, out
+
+
+def phase_cd_gradient(mf, g_incore):
+    """7d, second part: the direct gradient of the Cholesky SCF of 7c at
+    conv_tol 1e-12 agrees with the in-core SCF's (<= 1e-7 Ha/bohr)."""
+    import torch
+    from cctpu_torch.grad.scf_grad import gradient
+    mf.opts.conv_tol, mf.opts.conv_tol_grad = 1e-12, 1e-8
+    mf.kernel(dm0=mf.dm)
+    check(mf.converged, "phenol Cholesky SCF did not converge to 1e-12")
+    reset_counts()
+    t0 = time.time()
+    g = gradient(mf)
+    torch.cuda.synchronize()
+    err = float(np.abs(g.cpu().numpy() - np.asarray(g_incore)).max())
+    emit({"phase": "gradient_cd_phenol_b3lyp", "grad_s": time.time() - t0,
+          "abs_err_vs_incore": err, "launches_in_gradient": counts()})
+    check(err <= 1e-7, f"phenol |g_cd - g_incore| {err:.2e} > 1e-7")
+    check(not any(counts().values()), "the Cholesky gradient launched J/K")
+
+
+def phase_cli_cache():
+    """7f, second part: the ``energy`` CLI's code on phenol with
+    ``--scf-cache`` twice: the second run warm-starts from the first one's
+    checkpoint, takes fewer cycles and agrees (<= 1e-10 Ha)."""
+    from cctpu_torch.workflows import calculate_energy
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for k in range(2):
+            out = os.path.join(tmp, f"out{k}")
+            t0 = time.time()
+            e = calculate_energy.main(
+                ["--smiles", "Oc1ccccc1", "--method", "b3lyp", "--basis",
+                 "6-31g*", "--grid-level", "2", "--scf-cache",
+                 os.path.join(tmp, "cache"), "--output-dir", out])
+            wall = time.time() - t0
+            report, = [f for f in os.listdir(out)
+                       if f.endswith("_short_report.txt")]
+            with open(os.path.join(out, report)) as f:
+                text = f.read()
+            runs.append({"E": e, "wall_s": wall,
+                         "converged": "converged: True" in text,
+                         "cycles": int(text.split("cycles:")[1].split()[0]),
+                         "warm_start": "warm start" in text})
+    (r1, r2), de = runs, abs(runs[1]["E"] - runs[0]["E"])
+    emit({"phase": "cli_energy_scf_cache", "runs": runs, "abs_dE": de})
+    check(r1["converged"] and r2["converged"] and not r1["warm_start"]
+          and r2["warm_start"] and r2["cycles"] < r1["cycles"]
+          and de <= 1e-10, f"--scf-cache runs {runs}")
+
+
+def mark(t0, after):
+    emit({"phase": "clock", "after": after, "s": time.time() - t0})
 
 
 def main():
@@ -599,6 +826,7 @@ def main():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke: no CUDA device")
     from cctpu_torch.ops import build, df_jk     # fails outside a checkout
+    t_start = time.time()
     card = card_line()
     emit(card)
     emit({"phase": "card", "torch": torch.__version__,
@@ -623,28 +851,62 @@ def main():
 
     fused = phase_kernel(df_jk, dev)
     phase_kernel_j_k(dev)
+    mark(t_start, "2a")
     e_phenol, fused["launches"], mf, info = phase_phenol(dev)
     # O y, the hydroxyl H x, C1 y (the molecule lies in z = 0)
-    phase_gradient("gradient_phenol_b3lyp", mf, info,
-                   [(6, 1), (7, 0), (0, 1)], GRAD_ORACLES["phenol_b3lyp"])
+    fd_comps = [(6, 1), (7, 0), (0, 1)]
+    phase_gradient("gradient_phenol_b3lyp", mf, info, fd_comps,
+                   GRAD_ORACLES["phenol_b3lyp"])
     del mf
     torch.cuda.empty_cache()
+    mark(t_start, "3e")
     e_phenoxyl, jk, mf, info = phase_phenoxyl(dev)
     phase_gradient("gradient_phenoxyl_ub3lyp", mf, info, [(6, 1), (1, 0)],
                    GRAD_ORACLES["phenoxyl_ub3lyp"])
     del mf
     torch.cuda.empty_cache()
+    mark(t_start, "3f")
     phase_h_atom(dev, e_phenol, e_phenoxyl)
     phase_phenol_blyp(dev)
     torch.cuda.empty_cache()
+    mark(t_start, "3d")
     phase_c16h34(dev)
     torch.cuda.empty_cache()
-    phase_cli("Oc1ccccc1", [], "cli_energy", "df_jk_fused")
-    phase_cli("[O]c1ccccc1", ["--spin", "1"], "cli_energy_spin1", "df_k")
+    mark(t_start, "4")
+    phase_cli("Oc1ccccc1", ["--density-fit"], "cli_energy", "df_jk_fused")
+    phase_cli("[O]c1ccccc1", ["--density-fit", "--spin", "1"],
+              "cli_energy_spin1", "df_k")
+    mark(t_start, "5b")
     phase_small_gradients(dev)
+    mark(t_start, "6")
+
+    n_cd = phase_contract(dev)
+    mark(t_start, "7")
+    mf_in, info_in = phase_incore_phenol(dev, e_phenol)
+    mark(t_start, "7b")
+    mf_cd, n_phenol_cd, cd_kernels = phase_cholesky_phenol(dev, mf_in.e_tot)
+    n_cd = {k: n_cd[k] + n_phenol_cd[k] for k in n_cd}
+    mark(t_start, "7c")
+    res = phase_gradient("gradient_incore_phenol_b3lyp", mf_in, info_in,
+                         fd_comps, None)
+    del mf_in
+    torch.cuda.empty_cache()
+    phase_cd_gradient(mf_cd, res["gradient"])
+    del mf_cd
+    torch.cuda.empty_cache()
+    mark(t_start, "7d")
+    phase_small_gradients(dev, density_fit=False)
+    mark(t_start, "7e")
+    phase_cli("Oc1ccccc1", [], "cli_energy_incore", None)
+    phase_cli("[O]c1ccccc1", ["--spin", "1"], "cli_energy_incore_spin1",
+              None)
+    phase_cli_cache()
+    mark(t_start, "7f")
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
+    cd_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+               "library_ms")
     rows = [("df_jk_fused", "cctpu_torch/ops/csrc/df_jk_fused.cu",
              "cctpu/ops/df_jk_pallas.py:167", fused),
             ("df_j", "cctpu_torch/ops/csrc/df_j.cu",
@@ -653,7 +915,10 @@ def main():
              "cctpu/ops/df_jk_pallas.py:66", jk["df_k"])]
     emit(card)
     emit({"kernels": [{"name": name, "route": "cuda", "source": src,
-                       "replaces": rep, **{k: d[k] for k in keys}}
+                       "replaces": rep, **{k: d[k] for k in keys},
+                       "launches_cholesky": n_cd[name],
+                       "cholesky_shape": {k: cd_kernels[name][k]
+                                          for k in cd_keys}}
                       for name, src, rep, d in rows]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

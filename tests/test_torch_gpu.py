@@ -1,10 +1,14 @@
 """Tests of the port that need the card: the CUDA kernels (fused J+K, J,
-K) against their plain versions, and the CUDA dispatch (launch or raise).
-They skip without a CUDA device. This file imports neither JAX nor cctpu,
+K) against their plain versions, the CUDA dispatch (launch or raise), and
+the in-core and Cholesky SCFs and the direct gradient on the card against
+the CPU. They skip without a CUDA device. This file imports neither JAX nor cctpu,
 so it also runs on a machine without them:
 
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
 """
+
+import json
+import os
 
 import numpy as np
 import pytest
@@ -15,6 +19,10 @@ from cctpu_torch.ints.df import DFJK
 from cctpu_torch.ops import df_j, df_jk, df_k
 
 pytestmark = pytest.mark.gpu
+
+with open(os.path.join(os.path.dirname(__file__), "..", "scripts",
+                       "sad_oracles.json")) as _f:
+    WATER_CD_631G_E = json.load(_f)["water_cd_631g_e"]
 
 WATER = "O 0 0 0.1173; H 0 0.7572 -0.4692; H 0 -0.7572 -0.4692"
 # cctpu's tests/test_pallas_ops.py shapes (naux, nao, nocc), unaligned,
@@ -176,3 +184,40 @@ def test_dfjk_on_card_launches_or_raises(dev):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         jk(D, cocc=None)
     assert counts() == before
+
+
+def test_incore_and_cholesky_scf_on_card(dev):
+    """Water RHF/6-31G on the card: in-core against the same SCF on the CPU
+    (<= 1e-10 Ha), with no J/K kernel launched; Cholesky J/K against
+    cctpu's host-f64 oracle (<= 1e-8 Ha, the contract), the fused kernel
+    launched every cycle."""
+    from cctpu_torch.scf.hf import RHF
+    mol = Molecule.from_atoms(WATER, basis="6-31g")
+    e_cpu = RHF(mol, conv_tol=1e-12, device="cpu").kernel()
+    before = df_jk.LAUNCHES, df_j.LAUNCHES, df_k.LAUNCHES
+    mf = RHF(mol, conv_tol=1e-12, device=dev)
+    e = mf.kernel()
+    assert (df_jk.LAUNCHES, df_j.LAUNCHES, df_k.LAUNCHES) == before
+    assert mf.converged and abs(e - e_cpu) <= 1e-10
+    before = df_jk.LAUNCHES
+    mf = RHF(mol, density_fit="cd", conv_tol=1e-12, device=dev)
+    e = mf.kernel()
+    assert mf._jk.B.is_cuda and df_jk.LAUNCHES - before >= mf.n_cycles
+    assert mf.converged and abs(e - WATER_CD_631G_E) <= 1e-8
+
+
+def test_direct_gradient_on_card(dev):
+    """The in-core UHF gradient of NH2/STO-3G on the card against the CPU's
+    (<= 1e-10 Ha/bohr), two card calls bitwise equal."""
+    from cctpu_torch.grad.scf_grad import gradient
+    from cctpu_torch.scf.hf import UHF
+    nh2 = "N 0 0 0; H 0 0.8036 0.6347; H 0 -0.8036 0.6347"
+    mol = Molecule.from_atoms(nh2, spin=1, basis="sto-3g")
+    grads = []
+    for d in ("cpu", dev):
+        mf = UHF(mol, conv_tol=1e-12, device=d)
+        mf.kernel()
+        grads.append(gradient(mf))
+    g2 = gradient(mf)
+    assert torch.equal(grads[1], g2)
+    assert float((grads[1].cpu() - grads[0]).abs().max()) <= 1e-10

@@ -21,6 +21,7 @@ from cctpu_torch.dft.rks import RKS as TRKS
 from cctpu_torch.interop import basis_from_numpy, dm_from_numpy, \
     molecule_from_numpy
 from cctpu_torch.scf.hf import RHF as TRHF
+from cctpu_torch.scf.hf import IncoreJK
 from cctpu_torch.workflows import cli
 from cctpu_torch.workflows.common import make_scf
 
@@ -94,8 +95,10 @@ def test_cli_unported_paths_say_so(capsys):
     assert cli.main(["uv", "--smiles", "O"]) == 1
     assert "not ported" in capsys.readouterr().out
     mol = TMolecule.from_atoms(WATER, basis="sto-3g")
-    with pytest.raises(NotImplementedError, match="in-core"):
-        make_scf(mol, "b3lyp")                 # nao <= 160 means in-core
+    mf = make_scf(mol, "b3lyp", grid_level=1, device="cpu")
+    assert isinstance(mf.get_jk_builder(), IncoreJK)  # nao <= 160: in-core
+    mf.kernel()
+    assert mf.converged and -75.4 < mf.e_tot < -75.2
     with pytest.raises(NotImplementedError):
         make_scf(mol, "pbe0", density_fit=True)
 
