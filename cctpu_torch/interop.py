@@ -55,10 +55,10 @@ def molecule_from_numpy(symbols: Sequence[str], coords_bohr: np.ndarray,
 
 def dm_from_numpy(dm: np.ndarray,
                   device: Optional[torch.device] = None) -> torch.Tensor:
-    """A density matrix as an f64 tensor on the port's device."""
+    """A density matrix as an f64 tensor on ``device`` (default: the
+    card)."""
     return torch.tensor(np.asarray(dm, dtype=np.float64), dtype=DTYPE,
-                        device=default_device() if device is None
-                        else device)
+                        device=default_device(device))
 
 
 def dfjk_from_numpy(aux_shells: Iterable, coords_bohr: np.ndarray,

@@ -185,8 +185,7 @@ class SCFBase:
             raise NotImplementedError(
                 f"precision={self.opts.precision!r}: only 'f64' is ported "
                 "(mixed/f32 is a later slice, ROADMAP.md queue 1)")
-        self.device = torch.device(device) if device is not None \
-            else default_device()
+        self.device = default_device(device)
         self.coords = torch.as_tensor(self.mol.coords, dtype=DTYPE,
                                       device=self.device)
         self._jk = None

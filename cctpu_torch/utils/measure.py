@@ -24,6 +24,10 @@ PHENOXYL = PHENOL.replace(H_ATOM + "; ", "")
 # the small gradient cases (chip_smoke.py phase 6, tests/test_torch_grad.py)
 WATER = "O 0 0 0.1173; H 0 0.7572 -0.4692; H 0 -0.7572 -0.4692"
 NH2 = "N 0 0 0; H 0 0.8036 0.6347; H 0 -0.8036 0.6347"
+# distorted starts of the optimizations (chip_smoke.py phases 8, 8b;
+# water's is cctpu's tests/test_geomopt.py start)
+WATER_START = "O 0 0 0; H 0 0 1.05; H 0 1.02 -0.3"
+NH2_START = "N 0 0 0; H 0 0 1.10; H 0 1.00 -0.35"
 
 # (naux, nao, nocc): cctpu's tests/test_pallas_ops.py shapes (unaligned on
 # purpose) and phenol/6-31G*; the J and K kernels also at C16H34/6-31G*

@@ -32,7 +32,7 @@ def main(argv=None):
                   f"nao: {mol.nao}  charge: {mol.charge}  spin: {mol.spin}")
 
         mf, e = run_scf(mol, args.method, args.density_fit, log=out.print,
-                        grid_level=args.grid_level)
+                        grid_level=args.grid_level, device=args.device)
         out.print(f"\nTotal energy: {e:.10f} Ha  "
                   f"({e * 627.5094740631:.4f} kcal/mol)")
         out.print(f"converged: {mf.converged}  cycles: {mf.n_cycles}")

@@ -1,6 +1,7 @@
 """`python -m cctpu_torch.workflows.cli <workflow> ...` — the dispatcher
-over the workflow CLIs. Only ``energy`` is ported so far; the other names
-of cctpu's dispatcher are listed and say that they are not ported yet."""
+over the workflow CLIs. ``energy``, ``opt`` and ``opt-freq`` are ported so
+far; the other names of cctpu's dispatcher are listed and say that they are
+not ported yet."""
 
 from __future__ import annotations
 
@@ -9,9 +10,11 @@ import sys
 _WORKFLOWS = {
     "energy": ("cctpu_torch.workflows.calculate_energy",
                "single-point energy"),
+    "opt": ("cctpu_torch.workflows.optimize_geometry", "geometry opt + freq"),
+    "opt-freq": ("cctpu_torch.workflows.opt_freq", "production opt+freq+IR"),
 }
 # cctpu's other workflows, in ROADMAP.md queue 1 order
-_NOT_PORTED = ("opt", "opt-freq", "ir", "uv", "solvent", "interaction",
+_NOT_PORTED = ("ir", "uv", "solvent", "interaction",
                "reaction", "bde", "nmr", "casscf", "ms-pred")
 
 

@@ -58,7 +58,10 @@ def add_common_args(p: argparse.ArgumentParser, default_method="b3lyp",
     p.add_argument("--spin", type=int, default=0, help="2S = Na - Nb")
     p.add_argument("--use-gpu", action="store_true",
                    help="accepted for reference CLI compatibility (compute "
-                        "runs on the CUDA device when one is present)")
+                        "runs on the CUDA device unless --device cpu)")
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="where the SCF and its gradient run (default "
+                        "cuda; without a card, cuda raises)")
     p.add_argument("--density-fit", action="store_true", default=None,
                    help="force density fitting (default: auto by size, "
                         "in-core J/K up to nao 160)")
@@ -91,7 +94,8 @@ def open_reports(args, script: str):
 
 def make_scf(mol: Molecule, method: str, density_fit: Optional[bool] = None,
              grid_level: int = 3, **opts):
-    """Method string -> SCF object."""
+    """Method string -> SCF object; ``opts`` go to the SCF (``device``
+    among them: the card unless ``device="cpu"``)."""
     m = method.lower()
     if density_fit is None:
         density_fit = mol.nao > 160

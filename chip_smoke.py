@@ -69,13 +69,42 @@ Run from the root of a checkout. Phases, one printed line or more each:
 7f. the ``energy`` CLI without ``--density-fit`` (the default route,
    in-core: no J/K kernel) on phenol and the phenoxyl radical, then on
    phenol twice with ``--scf-cache``: the second run warm-starts, takes
-   fewer cycles and agrees (<= 1e-10 Ha).
+   fewer cycles and agrees (<= 1e-10 Ha);
+8. geometry optimization (``cctpu_torch.geomopt.optimizer.optimize``):
+   water DF-B3LYP/6-31G* (grid level 2, conv_tol 1e-12, orbital gradient
+   <= 1e-8) from cctpu's tests/test_geomopt.py start, twice: against
+   cctpu's CPU-f64 ``optimize`` on the same inputs (the same steps, every
+   step's energy <= 1e-8 Ha, final coordinates <= 1e-5 bohr), the two
+   runs' final coordinates bitwise equal, the fused kernel every cycle;
+8b. the same for the NH2 radical, DF-UB3LYP (DF-J every cycle, DF-K
+   twice a cycle);
+8c. phenol DF-B3LYP/6-31G* from bench.py's geometry (grid level 2,
+   phase 3e's conv_tol): step 0's energy against ``PHENOL_E_CONV``
+   (<= 1e-8 Ha) and gradient against cctpu's (<= 1e-7 Ha/bohr),
+   converged within 30 steps, the final projected gmax < 4.5e-4 and the
+   energy below the start; steps, SCF cycles, s/step and its split into
+   ``setup``, ``scf``, ``gradient`` and ``step``, fused launches equal
+   to the cycles, and the peak device memory of each step (no growth);
+8d. water FD Hessians with dipole derivatives (``hessian_auto``) at 8's
+   final coordinates as cctpu reached them: B3LYP frequencies <= 0.05
+   cm^-1 and IR intensities <= 1e-3 relative from cctpu's ``hessian_fd``,
+   ZPE, E_0K, H and G <= 1e-6 Ha from cctpu's ``thermo``; in-core RHF
+   the Hessian <= 5e-5 Ha/bohr^2 and real frequencies <= 1 cm^-1 from
+   cctpu's analytic (CPHF) Hessian (cctpu's B3LYP and DF analytic
+   Hessians did not finish on the CPU: see scripts/make_opt_oracles.py);
+8e. the ``opt`` (with frequencies) and ``opt-freq`` CLIs on water on
+   their default routes (in-core): rc 0, the xyz, csv and report files,
+   converged, no imaginary mode.
+
+The oracles of 8, 8b and 8d (``OPT_ORACLES``) come from
+``python scripts/make_opt_oracles.py <case>``.
 
 Any failure raises: the script then exits non-zero without its last line.
 The line before the last lists each kernel with its launches on the main
 path, its error, its time beside its plain version's and its bound, and
 its launches on the Cholesky phases (7, 7c) and its numbers at 7c's
-factor; a ``clock`` line after each group of phases gives the seconds
+factor, and its launches in the optimizations (8-8c) and the FD Hessian
+(8d); a ``clock`` line after each group of phases gives the seconds
 since the start. The last line is ``{"ok": true, "device": {...}}``.
 Needs no network and imports nothing of JAX or of the JAX package.
 """
@@ -87,8 +116,9 @@ import time
 import numpy as np
 
 from cctpu_torch.utils.measure import (C16H34_SHAPE, F64_SHAPES, H_ATOM,
-                                       KERNEL_SHAPES, NH2, PHENOL, PHENOXYL,
-                                       TOL, WATER, alkane, alternated_ms,
+                                       KERNEL_SHAPES, NH2, NH2_START,
+                                       PHENOL, PHENOXYL, TOL, WATER,
+                                       WATER_START, alkane, alternated_ms,
                                        bound, card_line, cuda_ms,
                                        device_inputs, emit, k_library,
                                        rel_err, work)
@@ -196,6 +226,144 @@ INCORE_ORACLES = {
         [-2.406550481914e-17, -4.967530979394e-03, -5.255190683439e-03],
         [-1.949822515900e-17, 4.967530979396e-03, -5.255190683440e-03],
     ],
+}
+
+# cctpu's CPU-f64 optimizations and water Hessians (Ha, bohr, cm^-1,
+# km/mol), as scripts/make_opt_oracles.py prints them: cctpu's own SCFs on
+# the CPU, f64, DF, 6-31G*, grid level 2, conv_tol 1e-12 and conv_tol_grad
+# 1e-8 (``OPT_SCF``); cctpu.geomopt.optimizer.optimize from WATER_START
+# (RKS) and NH2_START (UKS) of cctpu_torch/utils/measure.py; at water's
+# final coordinates cctpu.hessian.frequencies.hessian_fd (dipoles on),
+# harmonic_analysis and thermo, and cctpu.hessian.cphf.analytic_hessian of
+# the in-core RHF SCF there (conv_tol 1e-12, conv_tol_grad 1e-8)
+OPT_SCF = dict(xc="b3lyp", density_fit=True, grid_level=2, conv_tol=1e-12,
+               conv_tol_grad=1e-8, max_cycle=100)
+OPT_ORACLES = {
+    "water_b3lyp": {
+        "nsteps": 6,
+        "energies": [-76.39498399463405, -76.40607177575679,
+                     -76.40692225353472, -76.40702432744916,
+                     -76.40702553976907, -76.40702555932097],
+        "coords": [
+            [-3.349349095144368e-17, 0.04112477427631786,
+             0.020181576577490087],
+            [-4.596034594498731e-19, 0.07703664113527638, 1.850330579996156],
+            [-5.441026998952019e-19, 1.8093592316447682, -0.4532175631498499],
+        ],
+    },
+    "nh2_ub3lyp": {
+        "nsteps": 5,
+        "energies": [-55.86616305552145, -55.87084779854199,
+                     -55.87113451265882, -55.871145285639656,
+                     -55.87114586541877],
+        "coords": [
+            [-1.7365737527252144e-19, -0.03931405552624576,
+             0.004332804176407204],
+            [4.332596434255811e-21, 0.09191991483922714, 1.9538259896868166],
+            [-2.6713292398098765e-21, 1.8371202652520806, -0.540864200439427],
+        ],
+    },
+    "water_rhf_analytic": {
+        "freq_cm": [1885.9509766554227, 3776.862548060629, 3876.191403977385],
+        "hessian": [
+            [0.02613642703070229, -1.0640466591440739e-16,
+             6.194585270395218e-17, -0.013067252779336402,
+             2.282722250490238e-16, -3.0997065121290935e-16,
+             -0.013069174251365473, -1.3363058530472914e-16,
+             2.1022064513667634e-16],
+            [-1.0640466591440739e-16, 0.5558577935603561,
+             -0.08556409175915788, -7.285826749178911e-17,
+             -0.0689723304169785, 0.01691819625244459,
+             1.7527692062454754e-16, -0.48688546314477354,
+             0.06864589567474999],
+            [6.194585270395218e-17, -0.08556409175915788, 0.6053058104607884,
+             -2.054377122811975e-16, -0.05207411065484811,
+             -0.5116153154404506, 1.463958565850445e-16, 0.1376382026821866,
+             -0.09369049524017198],
+            [-0.013067252779336402, -7.285826749178911e-17,
+             -2.054377122811975e-16, 0.011990851829617899,
+             -1.427573667542622e-17, 2.7570366125618467e-16,
+             0.001076400949724294, 1.0162819624247438e-16,
+             -5.773382340058218e-17],
+            [2.282722250490238e-16, -0.0689723304169785,
+             -0.05207411065484811, -1.427573667542622e-17,
+             0.06931284634399004, -0.007792613949399188,
+             -2.1304051006420673e-16, -0.00034051598979774854,
+             0.059866724565250676],
+            [-3.0997065121290935e-16, 0.01691819625244459,
+             -0.5116153154404506, 2.7570366125618467e-16,
+             -0.007792613949399188, 0.526612937266814, 3.235829663529393e-17,
+             -0.009125582429060891, -0.014997621778827658],
+            [-0.013069174251365473, 1.7527692062454754e-16,
+             1.463958565850445e-16, 0.001076400949724294,
+             -2.1304051006420673e-16, 3.235829663529393e-17,
+             0.011992773301641613, 3.50324235345107e-17,
+             -1.5348212542246286e-16],
+            [-1.3363058530472914e-16, -0.48688546314477354,
+             0.1376382026821866, 1.0162819624247438e-16,
+             -0.00034051598979774854, -0.009125582429060891,
+             3.50324235345107e-17, 0.4872259791987483, -0.1285126203821657],
+            [2.1022064513667634e-16, 0.06864589567474999,
+             -0.09369049524017198, -5.773382340058218e-17,
+             0.059866724565250676, -0.014997621778827658,
+             -1.5348212542246286e-16, -0.1285126203821657,
+             0.10868811719129429],
+        ],
+    },
+    "water_b3lyp_fd": {
+        "E": -76.40702555932104,
+        "freq_cm": [1710.7837712149158, 3721.04774789716, 3844.932113587724],
+        "ir_km_mol": [3.449389274119287, 0.07645731666437187,
+                      0.8719469596467951],
+        "ZPE": 0.021134022586300753,
+        "E_0K": -76.38589153673475,
+        "H_tot": -76.38211277265498,
+        "G_tot": -76.404212284457,
+        "hessian": [
+            [7.778279343534367e-06, -8.058891040143071e-10,
+             -4.936910147489003e-10, -3.790738700056571e-06,
+             2.5766568790698545e-10, 3.8598827762853276e-10,
+             -3.952798229968986e-06, 5.468223610697194e-10,
+             1.1029921386401996e-10],
+            [-8.058891040143071e-10, 0.5209975766340968,
+             -0.09579492000401368, 3.765692949032843e-09,
+             -0.0493315074902613, 0.02091897276260135, 4.078008185741034e-11,
+             -0.4716659306719384, 0.07487619520354927],
+            [-4.936910147489003e-10, -0.09579492000401368,
+             0.5763767171824974, 2.5674447132225497e-09,
+             -0.047139958763816464, -0.4993503732151766,
+             1.041434088248586e-10, 0.14293454111874437, -0.0770263883635991],
+            [-3.790738700056571e-06, 3.765692949032843e-09,
+             2.5674447132225497e-09, 4.7197282911206955e-06,
+             -1.2031048293036179e-09, -2.0633386010157737e-09,
+             -9.466908656469485e-07, -2.5614585358471994e-09,
+             -5.054201864466756e-10],
+            [2.5766568790698545e-10, -0.0493315074902613,
+             -0.047139958763816464, -1.2031048293036179e-09,
+             0.05248151403695195, -0.00811127869865258,
+             -3.121978479184098e-11, -0.003149977874560006,
+             0.055251141766056444],
+            [3.8598827762853276e-10, 0.02091897276260135,
+             -0.4993503732151766, -2.0633386010157737e-09,
+             -0.00811127869865258, 0.5147604674223261,
+             -7.916966093484417e-11, -0.012807425673194706,
+             -0.015410103341835513],
+            [-3.952798229968986e-06, 4.078008185741034e-11,
+             1.041434088248586e-10, -9.466908656469485e-07,
+             -3.121978479184098e-11, -7.916966093484417e-11,
+             4.882448397620573e-06, -9.320920255494792e-12,
+             -2.7588732564690907e-11],
+            [5.468223610697194e-10, -0.4716659306719384, 0.14293454111874437,
+             -2.5614585358471994e-09, -0.003149977874560006,
+             -0.012807425673194706, -9.320920255494792e-12,
+             0.4748157414060372, -0.1301272677120477],
+            [1.1029921386401996e-10, 0.07487619520354927,
+             -0.0770263883635991, -5.054201864466756e-10,
+             0.055251141766056444, -0.015410103341835513,
+             -2.7588732564690907e-11, -0.1301272677120477,
+             0.09243654524702938],
+        ],
+    },
 }
 
 
@@ -817,6 +985,244 @@ def phase_cli_cache():
           and de <= 1e-10, f"--scf-cache runs {runs}")
 
 
+def opt_factory(cls, dev):
+    return lambda m: cls(m, device=dev, **OPT_SCF)
+
+
+def launches_per_cycle(tag, n, cycles, open_shell):
+    """The DF kernels of a run of SCFs with ``cycles`` cycles in all: the
+    fused kernel once a cycle (closed shell), else DF-J once and DF-K twice
+    a cycle."""
+    want = ({"df_jk_fused": 0, "df_j": cycles, "df_k": 2 * cycles}
+            if open_shell else
+            {"df_jk_fused": cycles, "df_j": 0, "df_k": 0})
+    check(n == want, f"{tag}: launches {n}, expected {want}")
+
+
+def phase_opt(tag, cls, atoms, spin, dev):
+    """8, 8b. ``optimize`` twice from ``atoms``, held against cctpu's
+    CPU-f64 optimization (``OPT_ORACLES[tag]``): the same steps, every
+    step's energy <= 1e-8 Ha, final coordinates <= 1e-5 bohr; the two runs
+    bitwise equal; the DF kernels every cycle. Returns the first run's
+    result and launches."""
+    import torch
+    from cctpu_torch.core.molecule import Molecule
+    from cctpu_torch.geomopt.optimizer import optimize
+    from cctpu_torch.utils.profiling import PhaseTimer
+    orc = OPT_ORACLES[tag]
+    mol = Molecule.from_atoms(atoms, spin=spin, basis="6-31g*")
+    runs = []
+    for _ in range(2):
+        timer = PhaseTimer(dev)
+        reset_counts()
+        t0 = time.time()
+        res = optimize(opt_factory(cls, dev), mol, timer=timer)
+        torch.cuda.synchronize(dev)
+        runs.append((res, counts(), time.time() - t0, timer.phases))
+    (res, n, wall, phases), (res2, n2, _, _) = runs
+    k = min(res.nsteps, orc["nsteps"])
+    de = float(np.abs(np.subtract(res.energies[:k],
+                                  orc["energies"][:k])).max())
+    dx = float(np.abs(res.mol.coords - np.asarray(orc["coords"])).max())
+    bitwise = bool(np.array_equal(res.mol.coords, res2.mol.coords))
+    emit({"phase": f"opt_{tag}", "converged": res.converged,
+          "steps": res.nsteps, "steps_cctpu": orc["nsteps"],
+          "cycles": res.cycles, "energies": res.energies,
+          "max_abs_dE_vs_cctpu": de, "max_abs_dx_vs_cctpu_bohr": dx,
+          "bitwise_repeat": bitwise, "wall_s": wall, "phases_s": phases,
+          "launches": n})
+    check(res.converged and res.nsteps == orc["nsteps"],
+          f"{tag}: {res.nsteps} steps (converged {res.converged}), cctpu "
+          f"{orc['nsteps']}")
+    check(de <= 1e-8, f"{tag}: step energies {de:.2e} Ha from cctpu's")
+    check(dx <= 1e-5, f"{tag}: final coordinates {dx:.2e} bohr off")
+    check(bitwise and n == n2, f"{tag}: the two runs differ")
+    launches_per_cycle(tag, n, sum(res.cycles), spin != 0)
+    return res, n
+
+
+def phase_opt_phenol(dev):
+    """8c. Phenol through ``optimize``: step 0 against the phenol oracles,
+    convergence, s/step and its split, launches and peak memory per step."""
+    import torch
+    from cctpu_torch.core.molecule import Molecule
+    from cctpu_torch.dft.rks import RKS
+    from cctpu_torch.geomopt.optimizer import _project_tr, optimize
+    from cctpu_torch.utils.profiling import PhaseTimer
+    mol = Molecule.from_atoms(PHENOL, basis="6-31g*")
+    timer = PhaseTimer(dev)
+    steps = []
+
+    def callback(step, m, e, g):
+        torch.cuda.synchronize(dev)
+        steps.append({"E": e, "g": g, "t": time.time(),
+                      "phases": dict(timer.phases),
+                      "peak_mem_GB": torch.cuda.max_memory_allocated(dev)
+                      / 1e9})
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    reset_counts()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.time()
+    res = optimize(opt_factory(RKS, dev), mol, maxsteps=30, timer=timer,
+                   callback=callback)
+    torch.cuda.synchronize(dev)
+    wall = time.time() - t0
+    n = counts()
+    split = {k: timer.phases[k] / res.nsteps
+             for k in ("setup", "scf", "gradient", "step")}
+    per_step, last = [], {"t": t0, "phases": {}}
+    for st in steps:
+        per_step.append({"s": st["t"] - last["t"], **{
+            k: st["phases"].get(k, 0.0) - last["phases"].get(k, 0.0)
+            for k in ("setup", "scf", "gradient", "step")},
+            "peak_mem_GB": st["peak_mem_GB"]})
+        last = st
+    e0_err = abs(steps[0]["E"] - PHENOL_E_CONV)
+    g0_err = float(np.abs(steps[0]["g"]
+                          - np.asarray(GRAD_ORACLES["phenol_b3lyp"])).max())
+    gp = _project_tr(steps[-1]["g"].ravel(), res.mol.coords)
+    gmax = float(np.abs(gp).max())
+    peaks = [st["peak_mem_GB"] for st in steps]
+    emit({"phase": "opt_phenol_b3lyp", "card": card_line(),
+          "converged": res.converged, "steps": res.nsteps,
+          "scf_cycles": res.cycles, "scf_cycles_total": sum(res.cycles),
+          "energies": res.energies, "abs_dE0_vs_oracle": e0_err,
+          "abs_dg0_vs_cctpu": g0_err, "final_projected_gmax": gmax,
+          "wall_s": wall, "s_per_step": wall / res.nsteps,
+          "s_per_step_split": split, "phases_s": timer.phases,
+          "per_step": per_step, "launches": n})
+    check(e0_err <= 1e-8, f"phenol opt step 0 |dE| {e0_err:.2e}")
+    check(g0_err <= 1e-7, f"phenol opt step 0 |dg| {g0_err:.2e}")
+    check(res.converged and gmax < 4.5e-4
+          and res.energies[-1] < res.energies[0],
+          f"phenol opt: converged {res.converged} in {res.nsteps} steps, "
+          f"gmax {gmax:.2e}")
+    launches_per_cycle("opt_phenol_b3lyp", n, sum(res.cycles), False)
+    # a step's set-up builds its grid and DF tensors at its own geometry:
+    # their sizes move a little with it, a leak of the last step would not
+    check(max(peaks) <= 1.05 * peaks[0],
+          f"phenol opt: peak memory grows over the steps {peaks}")
+    return n
+
+
+def phase_hessian(dev):
+    """8d. Water FD Hessians with dipoles at cctpu's optimized water
+    geometry, through ``hessian_auto`` from an SCF there: DF-B3LYP against
+    cctpu's FD Hessian, harmonic analysis and thermo; in-core RHF against
+    cctpu's analytic (CPHF) Hessian (its B3LYP and DF ones did not finish
+    on the CPU)."""
+    from cctpu_torch.core.molecule import Molecule
+    from cctpu_torch.dft.rks import RKS
+    from cctpu_torch.hessian.frequencies import harmonic_analysis, \
+        hessian_auto
+    from cctpu_torch.hessian.thermo import thermo
+    from cctpu_torch.scf.hf import RHF
+    fd, an = OPT_ORACLES["water_b3lyp_fd"], OPT_ORACLES["water_rhf_analytic"]
+    mol = Molecule.from_atoms(WATER_START, basis="6-31g*").with_coords(
+        np.asarray(OPT_ORACLES["water_b3lyp"]["coords"]))
+    out, n_all = {}, {}
+    for tag, factory in (
+            ("b3lyp", opt_factory(RKS, dev)),
+            ("rhf", lambda m: RHF(m, device=dev, density_fit=False,
+                                  conv_tol=1e-12, conv_tol_grad=1e-8,
+                                  max_cycle=100))):
+        mf = factory(mol)
+        e = mf.kernel()
+        reset_counts()
+        t0 = time.time()
+        log = []
+        H, dmu = hessian_auto(mf, factory, mol, log=log.append)
+        n = counts()
+        ha = harmonic_analysis(mol, H, dmu)
+        out[tag] = {"E": e, "wall_s": time.time() - t0, "log": log,
+                    "freq_cm": ha.freq_wavenumber.tolist(),
+                    "ir_km_mol": ha.ir_intensity.tolist(),
+                    "n_imaginary": ha.n_imaginary, "launches": n}
+        n_all = {k: n_all.get(k, 0) + n[k] for k in n}
+        check(log and "FD of analytic gradients" in log[0],
+              f"hessian_auto did not name its FD route: {log}")
+        check(ha.n_imaginary == 0, f"water {tag} has an imaginary mode")
+        # B3LYP runs DF (the fused kernel in every SCF), RHF in core (none)
+        check(n["df_j"] == n["df_k"] == 0 and (
+            n["df_jk_fused"] >= 6 * mol.natm if tag == "b3lyp"
+            else n["df_jk_fused"] == 0),
+            f"water {tag} FD Hessian launches {n}")
+        if tag == "b3lyp":
+            th = thermo(mol, ha.freq_au, e)
+            res = out[tag]
+            res["max_abs_dfreq_vs_cctpu_fd"] = float(np.abs(
+                ha.freq_wavenumber - np.asarray(fd["freq_cm"])).max())
+            res["max_rel_dIR_vs_cctpu_fd"] = float(np.max(
+                np.abs(ha.ir_intensity - np.asarray(fd["ir_km_mol"]))
+                / np.abs(fd["ir_km_mol"])))
+            res["max_abs_dH_vs_cctpu_fd"] = float(np.abs(
+                H - np.asarray(fd["hessian"])).max())
+            res["abs_dthermo_vs_cctpu"] = {
+                k: abs(th[k][0] - fd[k]) for k in ("ZPE", "E_0K", "H_tot",
+                                                   "G_tot")}
+            check(res["max_abs_dfreq_vs_cctpu_fd"] <= 0.05,
+                  f"water frequencies {res['max_abs_dfreq_vs_cctpu_fd']:.3f}"
+                  " cm^-1 off cctpu's FD")
+            check(res["max_rel_dIR_vs_cctpu_fd"] <= 1e-3,
+                  f"water IR intensities {res['max_rel_dIR_vs_cctpu_fd']:.2e}"
+                  " relative off cctpu's")
+            check(max(res["abs_dthermo_vs_cctpu"].values()) <= 1e-6,
+                  f"water thermo off cctpu's: {res['abs_dthermo_vs_cctpu']}")
+        else:
+            freq = ha.freq_wavenumber
+            real = freq > 0
+            res = out[tag]
+            res["max_abs_dH_vs_cctpu_analytic"] = float(np.abs(
+                H - np.asarray(an["hessian"])).max())
+            res["max_abs_dfreq_vs_cctpu_analytic"] = float(np.abs(
+                freq[real] - np.asarray(an["freq_cm"])[real]).max())
+            check(res["max_abs_dH_vs_cctpu_analytic"] <= 5e-5,
+                  f"water RHF |H - H_analytic| "
+                  f"{res['max_abs_dH_vs_cctpu_analytic']:.2e}")
+            check(res["max_abs_dfreq_vs_cctpu_analytic"] <= 1.0,
+                  f"water RHF frequencies "
+                  f"{res['max_abs_dfreq_vs_cctpu_analytic']:.3f} cm^-1 off "
+                  "the analytic Hessian's")
+    emit({"phase": "hessian_fd_water", **out})
+    return n_all
+
+
+def phase_cli_opt():
+    """8e. The ``opt`` and ``opt-freq`` CLIs on water, default routes (in
+    core: no J/K kernel), on the card."""
+    from cctpu_torch.workflows import cli
+    for name, files in (("opt", ("_optimized.xyz",)),
+                        ("opt-freq", ("_optimized.xyz", "_ir.csv"))):
+        reset_counts()
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.time()
+            rc = cli.main([name, "--smiles", "O", "--output-dir", tmp])
+            wall = time.time() - t0
+            names = os.listdir(tmp)
+            report = [f for f in names if f.endswith("_short_report.txt")]
+            text = ""
+            if report:
+                with open(os.path.join(tmp, report[0])) as f:
+                    text = f.read()
+        missing = [sfx for sfx in files + ("_short_report.txt",
+                                           "_log_report.txt")
+                   if not any(f.endswith(sfx) for f in names)]
+        converged = ("optimization converged" in text if name == "opt"
+                     else "converged=True" in text)
+        no_imag = ("no imaginary frequencies" in text if name == "opt"
+                   else "imaginary: 0" in text)
+        emit({"phase": f"cli_{name}", "rc": rc, "wall_s": wall,
+              "files": sorted(names), "converged": converged,
+              "no_imaginary_mode": no_imag, "launches": counts()})
+        check(rc == 0 and not missing and converged and no_imag,
+              f"{name} CLI: rc {rc}, missing {missing}, converged "
+              f"{converged}, no imaginary mode {no_imag}")
+        check(not any(counts().values()),
+              f"{name} CLI's in-core route launched {counts()}")
+
+
 def mark(t0, after):
     emit({"phase": "clock", "after": after, "s": time.time() - t0})
 
@@ -833,6 +1239,7 @@ def main():
           "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0)})
     dev = torch.device("cuda", 0)
+    from cctpu_torch.dft.rks import RKS, UKS
 
     t0 = time.time()
     build.compile_all()
@@ -903,6 +1310,21 @@ def main():
     phase_cli_cache()
     mark(t_start, "7f")
 
+    _, n_opt = phase_opt("water_b3lyp", RKS, WATER_START, 0, dev)
+    mark(t_start, "8")
+    _, n_nh2 = phase_opt("nh2_ub3lyp", UKS, NH2_START, 1, dev)
+    n_opt = {k: n_opt[k] + n_nh2[k] for k in n_opt}
+    mark(t_start, "8b")
+    n_phenol = phase_opt_phenol(dev)
+    n_opt = {k: n_opt[k] + n_phenol[k] for k in n_opt}
+    torch.cuda.empty_cache()
+    mark(t_start, "8c")
+    n_hess = phase_hessian(dev)
+    mark(t_start, "8d")
+    phase_cli_opt()
+    mark(t_start, "8e")
+    check(all(n_opt.values()), f"a kernel never ran in 8-8c: {n_opt}")
+
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
     cd_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -917,6 +1339,8 @@ def main():
     emit({"kernels": [{"name": name, "route": "cuda", "source": src,
                        "replaces": rep, **{k: d[k] for k in keys},
                        "launches_cholesky": n_cd[name],
+                       "launches_opt": n_opt[name],
+                       "launches_hessian": n_hess[name],
                        "cholesky_shape": {k: cd_kernels[name][k]
                                           for k in cd_keys}}
                       for name, src, rep, d in rows]})

@@ -246,8 +246,8 @@ def test_cli_default_route_and_scf_cache(tmp_path):
     def run(*extra):
         out = tmp_path / f"out{len(list(tmp_path.iterdir()))}"
         e = calculate_energy.main(["--smiles", "O", "--method", "hf",
-                                   "--basis", "sto-3g", *extra,
-                                   "--output-dir", str(out)])
+                                   "--basis", "sto-3g", "--device", "cpu",
+                                   *extra, "--output-dir", str(out)])
         short, = [p for p in out.iterdir()
                   if p.name.endswith("_short_report.txt")]
         text = short.read_text()

@@ -144,7 +144,7 @@ def test_cli_energy_oh_radical(tmp_path):
     rc = cli.main(["energy", "--smiles", "[OH]", "--spin", "1",
                    "--method", "b3lyp", "--basis", "sto-3g",
                    "--grid-level", "1", "--density-fit",
-                   "--output-dir", str(tmp_path)])
+                   "--device", "cpu", "--output-dir", str(tmp_path)])
     assert rc == 0
     short = [p for p in tmp_path.iterdir()
              if p.name.endswith("_short_report.txt")]

@@ -12,6 +12,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from cctpu.core.molecule import Molecule as JMolecule
 from cctpu.dft.rks import RKS as JRKS
@@ -79,7 +80,8 @@ def test_rhf_water_df_matches_cctpu():
 def test_cli_energy_water(tmp_path):
     rc = cli.main(["energy", "--smiles", "O", "--method", "b3lyp",
                    "--basis", "sto-3g", "--grid-level", "1",
-                   "--density-fit", "--output-dir", str(tmp_path)])
+                   "--density-fit", "--device", "cpu",
+                   "--output-dir", str(tmp_path)])
     assert rc == 0
     reports = sorted(p.name for p in tmp_path.iterdir())
     short = [p for p in reports if p.endswith("_short_report.txt")]
@@ -91,7 +93,7 @@ def test_cli_energy_water(tmp_path):
     assert -75.4 < e < -75.2                   # B3LYP/STO-3G water
 
 
-def test_cli_unported_paths_say_so(capsys):
+def test_cli_unported_paths_say_so(capsys, tmp_path):
     assert cli.main(["uv", "--smiles", "O"]) == 1
     assert "not ported" in capsys.readouterr().out
     mol = TMolecule.from_atoms(WATER, basis="sto-3g")
@@ -100,7 +102,17 @@ def test_cli_unported_paths_say_so(capsys):
     mf.kernel()
     assert mf.converged and -75.4 < mf.e_tot < -75.2
     with pytest.raises(NotImplementedError):
-        make_scf(mol, "pbe0", density_fit=True)
+        make_scf(mol, "pbe0", density_fit=True, device="cpu")
+    if not torch.cuda.is_available():
+        # the card unless the caller asks for the CPU: no silent fallback
+        for build in (lambda: make_scf(mol, "b3lyp", grid_level=1),
+                      lambda: TRHF(mol, density_fit=True),
+                      lambda: dm_from_numpy(np.eye(mol.nao))):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                build()
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(["energy", "--smiles", "O", "--method", "hf",
+                      "--basis", "sto-3g", "--output-dir", str(tmp_path)])
 
 
 def test_port_imports_no_jax():
