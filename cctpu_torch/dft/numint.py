@@ -60,3 +60,12 @@ def eval_ao(basis: BasisSet, coords: torch.Tensor, pts: torch.Tensor,
                 planes[1 + dd, rows] = dval.reshape(-1, npts)
     out = planes.transpose(1, 2)
     return out[0] if deriv == 0 else out
+
+
+def eval_tau(ao: torch.Tensor, dm: torch.Tensor) -> torch.Tensor:
+    """Kinetic-energy density tau = 1/2 sum_d ao_d D ao_d [npts] of a
+    density matrix ``dm`` from AO values and gradients ao [4, npts, nao]
+    (cctpu's ``eval_rho`` for MGGA): the meta-GGAs' tau of one spin with
+    that spin's density."""
+    return 0.5 * sum(torch.sum((ao[1 + d] @ dm) * ao[1 + d], -1)
+                     for d in range(3))

@@ -8,7 +8,11 @@ Port of ``cctpu/dft/rks.py``:
  - the XC Fock matrix is ``torch.autograd.grad`` of E_xc with respect to
    the density matrix, taken chunk by chunk (the sum of the chunk
    gradients is the gradient of the sum) and made symmetric;
- - the hybrid's exact exchange comes from the same J/K builder as HF;
+ - the hybrid's exact exchange comes from the same J/K builder as HF,
+   and a range-separated functional's long-range exchange from the
+   builder's ``k_lr`` (B_lr on the DF route);
+ - meta-GGAs get the kinetic-energy densities from the AO gradients the
+   cache already holds;
  - UKS keeps both spin densities stacked as [2, nao, nao].
 """
 
@@ -17,7 +21,7 @@ from __future__ import annotations
 import torch
 
 from cctpu_torch.dft.grids import Grids
-from cctpu_torch.dft.numint import eval_ao
+from cctpu_torch.dft.numint import eval_ao, eval_tau
 from cctpu_torch.dft.xc import get_functional
 from cctpu_torch.scf.hf import RHF, UHF
 
@@ -112,15 +116,18 @@ class _XCMixin:
     def _chunk_exc_from_ao(func, dm, ao, w):
         """Integrated XC energy of one grid chunk given AO values
         ao [4, chunk, nao] (value + 3 gradients); a [nao, nao] dm is the
-        restricted total density, a [2, nao, nao] one the two spins."""
+        restricted total density, a [2, nao, nao] one the two spins. The
+        kinetic-energy densities (``eval_tau``) are formed for meta-GGAs
+        only, else passed as zeros."""
         a0 = ao[0]
+        mgga = func.xctype == "MGGA"
         if dm.ndim == 2:
             da = (0.5 * dm) @ a0.T                       # [nao, chunk]
             ra = torch.einsum("pi,ip->p", a0, da)
             ga = torch.stack([2 * torch.einsum("pi,ip->p", ao[1 + d], da)
                               for d in range(3)], -1)
             saa = torch.einsum("pd,pd->p", ga, ga)
-            ta = torch.zeros_like(ra)
+            ta = eval_tau(ao, 0.5 * dm) if mgga else torch.zeros_like(ra)
             e = func.exc(ra, ra, saa, saa, saa, ta, ta)
             return torch.sum(w * e)
         dab = dm @ a0.T                                  # [2, nao, chunk]
@@ -130,8 +137,11 @@ class _XCMixin:
         saa = torch.einsum("pd,pd->p", g[0], g[0])
         sab = torch.einsum("pd,pd->p", g[0], g[1])
         sbb = torch.einsum("pd,pd->p", g[1], g[1])
-        t = torch.zeros_like(r[0])
-        e = func.exc(r[0], r[1], saa, sab, sbb, t, t)
+        if mgga:
+            ta, tb = eval_tau(ao, dm[0]), eval_tau(ao, dm[1])
+        else:
+            ta = tb = torch.zeros_like(r[0])
+        e = func.exc(r[0], r[1], saa, sab, sbb, ta, tb)
         return torch.sum(w * e)
 
     def exc_of_coords(self, coords, dm):
@@ -186,6 +196,11 @@ class RKS(_XCMixin, RHF):
         if func.hyb:
             veff = veff - 0.5 * func.hyb * K
             e2 = e2 - 0.25 * func.hyb * torch.einsum("ij,ij->", dm, K)
+        if func.rsh is not None:
+            omega, _, beta = func.rsh
+            Klr = self._jk.k_lr(dm, omega, cocc=cocc)
+            veff = veff - 0.5 * beta * Klr
+            e2 = e2 - 0.25 * beta * torch.einsum("ij,ij->", dm, Klr)
         if func.exc is not None:
             exc, vxc = self._exc_vxc(dm)
             veff = veff + vxc
@@ -203,6 +218,11 @@ class UKS(_XCMixin, UHF):
         if func.hyb:
             veff = veff - func.hyb * K
             e2 = e2 - 0.5 * func.hyb * torch.einsum("sij,sij->", dm, K)
+        if func.rsh is not None:
+            omega, _, beta = func.rsh
+            Klr = self._jk.k_lr(dm, omega, cocc=cocc)
+            veff = veff - beta * Klr
+            e2 = e2 - 0.5 * beta * torch.einsum("sij,sij->", dm, Klr)
         if func.exc is not None:
             exc, vxc = self._exc_vxc(dm)
             veff = veff + vxc

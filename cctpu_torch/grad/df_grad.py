@@ -20,10 +20,15 @@ with W and Z by autograd through the quartet kernel, class by class and
 chunk by chunk, with the same class walk and Schwarz selection as
 ``ints/df.py::build_3c2e`` and ``build_2c2e``.
 
+A range-separated functional's long-range exchange -beta/4 Tr[D K_lr]
+adds the same terms on the erf-attenuated factors: W/Z of its exchange
+part alone from B_lr and Linv_lr at weight beta (cctpu forms them at beta
+minus at 0, where the J parts cancel), and the 3c and 2c terms of the
+attenuated quartet kernel over the same walks.
+
 cctpu's TPU guards (``GradKernelCorrupt``, the host-FD spot checks of its
 gradient executables, the compile memos) and its f32 W/Z assembly have no
-counterpart here. Range-separated exchange (the long-range terms) comes
-with the range-separated functionals (ROADMAP.md queue 1 item 10).
+counterpart here.
 """
 
 from __future__ import annotations
@@ -65,16 +70,19 @@ def occupied_factors(mf):
     return [(c.contiguous(), w) for c, w in facs]
 
 
-def _wz(B, Linv, Dt, facs, ax: float):
+def _wz(B, Linv, Dt, facs, ax: float, with_j: bool = True):
     """(Ws, Zs): Ws = W + W^T [naux, nao, nao] and Zs = Z + Z^T
     [naux, naux] from B [nkeep, nao, nao], Linv [nkeep, naux], the total
     density Dt and the occupied factors [(C_s, weight)] of the spin
-    densities."""
-    nk, nao = B.shape[0], B.shape[1]
-    u = B.reshape(nk, -1) @ Dt.reshape(-1)
-    gam = Linv.T @ u
-    W = gam[:, None, None] * Dt[None]
-    Z = -0.5 * torch.outer(gam, gam)
+    densities; without ``with_j`` those of the exchange part alone (then
+    ``ax`` must not be 0)."""
+    nk = B.shape[0]
+    W = Z = 0.0
+    if with_j:
+        u = B.reshape(nk, -1) @ Dt.reshape(-1)
+        gam = Linv.T @ u
+        W = gam[:, None, None] * Dt[None]
+        Z = -0.5 * torch.outer(gam, gam)
     if ax:
         for C, wt in facs:
             nocc = C.shape[1]
@@ -86,16 +94,18 @@ def _wz(B, Linv, Dt, facs, ax: float):
     return W + W.transpose(1, 2), Z + Z.T
 
 
-def grad_of_walk(walk, coords, chunk_energy):
+def grad_of_walk(walk, coords, chunk_energy, omega=None):
     """sum over ``walk``'s chunks of ``chunk_energy(blocks, rows, mult)``,
-    differentiated in the coordinates chunk by chunk: [natm, 3]. Each
-    chunk's centers are rows of the leaf, so each chunk's graph is freed
-    after its backward."""
+    differentiated in the coordinates chunk by chunk: [natm, 3]; the blocks
+    are those of the erf-attenuated operator with ``omega``. Each chunk's
+    centers are rows of the leaf, so each chunk's graph is freed after its
+    backward."""
     leaf = coords.detach().requires_grad_(True)
     g = torch.zeros_like(coords)
     for ls, args, rows, mult in walk:
         with torch.enable_grad():
-            e = chunk_energy(eri_quartet_kernel(ls, *args(leaf)), rows, mult)
+            e = chunk_energy(eri_quartet_kernel(ls, *args(leaf), omega=omega),
+                             rows, mult)
             gc, = torch.autograd.grad(e, leaf)
         g = g + gc
     return g
@@ -107,35 +117,52 @@ def _weighted(weights, pick):
         "q,q...,q...->", mult, pick(blocks), weights[rows])
 
 
-def _grad_3c(basis, aux, coords, Ws):
+def _grad_3c(basis, aux, coords, Ws, omega=None):
     """sum_{P,ab} d(P|ab)/dR Ws[P,a,b] / 2 over ``walk_3c2e``'s AO pairs
-    (each pair once, a same-shell pair at half weight): [natm, 3]."""
+    (each pair once, a same-shell pair at half weight), of the attenuated
+    operator with ``omega``: [natm, 3]."""
     return grad_of_walk(walk_3c2e(basis, aux, coords, budget=_GRAD_BUDGET),
-                        coords, _weighted(Ws, lambda blk: blk[:, :, 0]))
+                        coords, _weighted(Ws, lambda blk: blk[:, :, 0]),
+                        omega)
 
 
-def _grad_2c(aux, coords, Zs):
+def _grad_2c(aux, coords, Zs, omega=None):
     """sum_PQ d(P|Q)/dR Zs[P,Q] / 2 over ``walk_2c2e``'s aux shell pairs
-    (lP <= lQ, q1 <= q2 within one l, q1 == q2 at half weight): [natm, 3]."""
+    (lP <= lQ, q1 <= q2 within one l, q1 == q2 at half weight), of the
+    attenuated operator with ``omega``: [natm, 3]."""
     return grad_of_walk(walk_2c2e(aux, coords, budget=_GRAD_BUDGET), coords,
-                        _weighted(Zs, lambda blk: blk[:, :, 0, :, 0]))
+                        _weighted(Zs, lambda blk: blk[:, :, 0, :, 0]), omega)
 
 
 def df_e2_gradient(mf, timer=None) -> torch.Tensor:
     """d(E_2e)/dR [natm, 3] of a converged density-fitted SCF (RHF, UHF,
-    RKS, UKS), on the SCF's device. ``timer``, a
+    RKS, UKS, range-separated or not), on the SCF's device. ``timer``, a
     ``utils.profiling.PhaseTimer``, receives the phases ``wz`` (the W/Z
-    assembly), ``3c`` and ``2c``."""
+    assembly), ``3c`` and ``2c``, and ``3c_lr`` and ``2c_lr`` (the
+    long-range terms)."""
     func = getattr(mf, "func", None)
     ax = 1.0 if func is None else func.hyb
     jk = mf.get_jk_builder()
     dm = mf.dm
+    Dt = dm.sum(0) if dm.ndim == 3 else dm
+    basis = mf.mol.basis_set
     with phase(timer, "wz"):
-        Ws, Zs = _wz(jk.B, jk._Linv, dm.sum(0) if dm.ndim == 3 else dm,
-                     occupied_factors(mf), ax)
+        facs = occupied_factors(mf)
+        Ws, Zs = _wz(jk.B, jk._Linv, Dt, facs, ax)
     with phase(timer, "3c"):
-        g = _grad_3c(mf.mol.basis_set, jk.aux, mf.coords, Ws)
+        g = _grad_3c(basis, jk.aux, mf.coords, Ws)
     del Ws
     with phase(timer, "2c"):
         g = g + _grad_2c(jk.aux, mf.coords, Zs)
+    rsh = getattr(func, "rsh", None)
+    if rsh is not None:
+        omega, _, beta = rsh
+        with phase(timer, "wz"):
+            Ws, Zs = _wz(*jk.prepare_lr(omega), Dt, facs, beta,
+                         with_j=False)
+        with phase(timer, "3c_lr"):
+            g = g + _grad_3c(basis, jk.aux, mf.coords, Ws, omega)
+        del Ws
+        with phase(timer, "2c_lr"):
+            g = g + _grad_2c(jk.aux, mf.coords, Zs, omega)
     return g

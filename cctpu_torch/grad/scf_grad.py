@@ -11,7 +11,10 @@ grid-weight derivatives, is the functional's ``exc_of_coords``. The
 two-electron term of a density-fitted SCF is ``grad/df_grad.py``; that of
 an in-core or Cholesky SCF is the direct term, autograd of the exact
 E_2e through the quartet kernel (as in cctpu, a Cholesky SCF's gradient
-goes direct). No CPHF is needed for SCF gradients.
+goes direct). A range-separated functional adds its long-range exchange
+term (the attenuated operator) on either route, and a dispersion
+correction its gradient by autograd. No CPHF is needed for SCF
+gradients.
 
 PyTorch runs one eager path, so cctpu's single traced ``scf_gradient`` and
 its platform dispatch (both there for a whole-program compiler) have no
@@ -22,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from cctpu_torch.dft.dispersion import dispersion_energy
 from cctpu_torch.grad.df_grad import _GRAD_BUDGET, df_e2_gradient, \
     grad_of_walk
 from cctpu_torch.ints.one_electron import build_int1e_eager
@@ -40,19 +44,10 @@ def _energy_weighted_dm(mf) -> torch.Tensor:
 
 
 def _check_supported(mf):
-    func = getattr(mf, "func", None)
-    if getattr(func, "dispersion", None):
-        raise NotImplementedError(
-            f"{func.name}: the dispersion correction and its gradient are "
-            "not ported (ROADMAP.md queue 1 item 10)")
     if getattr(mf, "_pcm", None) is not None:
         raise NotImplementedError(
             "the PCM solvation gradient is not ported (ROADMAP.md queue 1 "
             "item 14)")
-    if getattr(func, "rsh", None) is not None:
-        raise NotImplementedError(
-            f"{func.name}: the long-range gradient terms of range-separated "
-            "functionals are not ported (ROADMAP.md queue 1 item 10)")
     if mf.density_fit == "compressed":
         raise NotImplementedError(
             "the pair-compressed DF gradient is not ported (ROADMAP.md "
@@ -63,14 +58,27 @@ def direct_e2_gradient(mf, timer=None) -> torch.Tensor:
     """d(E_2e)/dR [natm, 3] of the exact two-electron energy at ``mf.dm``
     (``energy_2e_direct`` with the functional's exchange weight):
     autograd through the quartet kernel, one ``walk_4c`` chunk at a time.
-    ``timer`` receives the phase ``2e``."""
+    A range-separated functional adds its long-range exchange, the
+    exchange part alone of the attenuated operator at weight beta (cctpu:
+    E_2e at beta minus at 0, where the J parts cancel). ``timer``
+    receives the phases ``2e`` and ``2e_lr``."""
     func = getattr(mf, "func", None)
-    Dt, Dks, kw = e2_densities(mf.dm, 1.0 if func is None else func.hyb)
-    with phase(timer, "2e"):
+
+    def walk(Dt, Dks, kw, omega=None):
         return grad_of_walk(
             walk_4c(mf.mol.basis_set, mf.coords, budget=_GRAD_BUDGET),
             mf.coords, lambda blocks, rows, mult: chunk_energy_2e(
-                blocks, rows, mult, Dt, Dks, kw))
+                blocks, rows, mult, Dt, Dks, kw), omega)
+
+    with phase(timer, "2e"):
+        g = walk(*e2_densities(mf.dm, 1.0 if func is None else func.hyb))
+    rsh = getattr(func, "rsh", None)
+    if rsh is not None:
+        omega, _, beta = rsh
+        _, Dks, kw = e2_densities(mf.dm, beta)
+        with phase(timer, "2e_lr"):
+            g = g + walk(None, Dks, kw, omega)
+    return g
 
 
 def gradient(mf, timer=None) -> torch.Tensor:
@@ -80,7 +88,9 @@ def gradient(mf, timer=None) -> torch.Tensor:
 
     ``timer``, a ``utils.profiling.PhaseTimer``, receives the seconds of
     each term: ``1e``, ``xc``, ``nuc`` and ``wz``, ``3c``, ``2c`` (DF) or
-    ``2e`` (in-core, Cholesky)."""
+    ``2e`` (in-core, Cholesky); with a range-separated functional also
+    ``3c_lr`` and ``2c_lr`` (DF) or ``2e_lr``, with a dispersion
+    correction ``disp``."""
     _check_supported(mf)
     if mf.dm is None or mf.mo_coeff is None:
         raise ValueError("gradient needs a converged SCF: run kernel() "
@@ -107,6 +117,13 @@ def gradient(mf, timer=None) -> torch.Tensor:
     if func is not None and func.exc is not None:
         with phase(timer, "xc"):
             g = g + mf.exc_of_coords(mf.coords, dm)[1]
+    if getattr(func, "dispersion", None):
+        with phase(timer, "disp"):
+            leaf = mf.coords.detach().requires_grad_(True)
+            with torch.enable_grad():
+                gd, = torch.autograd.grad(
+                    dispersion_energy(func, mol, leaf), leaf)
+            g = g + gd
     with phase(timer, "nuc"):
         leaf = mf.coords.detach().requires_grad_(True)
         with torch.enable_grad():

@@ -63,22 +63,30 @@ def dm_from_numpy(dm: np.ndarray,
 
 def dfjk_from_numpy(aux_shells: Iterable, coords_bohr: np.ndarray,
                     B: np.ndarray, Linv: np.ndarray,
-                    device: Optional[torch.device] = None) -> DFJK:
+                    device: Optional[torch.device] = None,
+                    lr: Optional[dict] = None) -> DFJK:
     """The port's DF-J/K builder on given tensors: the aux basis from shell
     data (as ``basis_from_numpy``), B [nkeep, nao, nao] and the metric
-    factor Linv [nkeep, naux] (M^+ = Linv^T Linv). Set it as an SCF's
-    ``_jk`` before ``kernel()`` to run the SCF and its gradient on them."""
-    return DFJK.from_tensors(basis_from_numpy(aux_shells, coords_bohr),
-                             dm_from_numpy(B, device), dm_from_numpy(Linv,
-                                                                     device))
+    factor Linv [nkeep, naux] (M^+ = Linv^T Linv); ``lr`` {omega: (B_lr,
+    Linv_lr)}, the erf-attenuated ones of a range-separated functional.
+    Set it as an SCF's ``_jk`` before ``kernel()`` to run the SCF and its
+    gradient on them."""
+    return DFJK.from_tensors(
+        basis_from_numpy(aux_shells, coords_bohr), dm_from_numpy(B, device),
+        dm_from_numpy(Linv, device),
+        lr={om: (dm_from_numpy(b, device), dm_from_numpy(li, device))
+            for om, (b, li) in (lr or {}).items()})
 
 
-def eri_from_numpy(eri: np.ndarray,
-                   device: Optional[torch.device] = None) -> IncoreJK:
+def eri_from_numpy(eri: np.ndarray, device: Optional[torch.device] = None,
+                   lr: Optional[dict] = None) -> IncoreJK:
     """The port's in-core J/K builder on a given (ij|kl) tensor [nao, nao,
-    nao, nao] (cctpu's ``build_eri_incore``, say). Set it as an SCF's
-    ``_jk`` before ``kernel()`` to run the SCF on those integrals."""
-    return IncoreJK.from_eri(dm_from_numpy(eri, device))
+    nao, nao] (cctpu's ``build_eri_incore``, say); ``lr`` {omega: tensor},
+    the erf-attenuated ones of a range-separated functional. Set it as an
+    SCF's ``_jk`` before ``kernel()`` to run the SCF on those integrals."""
+    return IncoreJK.from_eri(
+        dm_from_numpy(eri, device),
+        lr={om: dm_from_numpy(e, device) for om, e in (lr or {}).items()})
 
 
 def set_scf_state(mf, dm: np.ndarray, mo_coeff: np.ndarray,

@@ -14,19 +14,26 @@ pivoted Cholesky on the host, and B = Linv @ X is one f64 matmul.
 ``CholeskyJK`` runs the same contractions on another factor: the pivoted
 Cholesky vectors of the in-core ERI tensor (``cholesky_B``), exact to the
 decomposition's tolerance.
+
+The long-range exchange of a range-separated functional: ``DFJK`` runs
+``df_k`` on B_lr, the same factor of the erf-attenuated integrals (its
+metric factored at rcond 1e-10, as cctpu's); ``CholeskyJK`` contracts the
+attenuated in-core tensor, as cctpu does.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
 
 from cctpu_torch.core.basis import BasisSet, Shell, normalize_contraction
 from cctpu_torch.device import as_tensor
-from cctpu_torch.ints.two_electron import (CHUNK_BUDGET, Shells,
-                                           build_eri_incore, class_chunk,
+from cctpu_torch.ints.two_electron import (CHUNK_BUDGET, IncoreLR, LRCache,
+                                           Shells, build_eri_incore,
+                                           class_chunk,
                                            eri_quartet_kernel, pair_classes,
                                            schwarz_q)
 from cctpu_torch.ops.df_j import df_j_fast
@@ -188,26 +195,32 @@ def walk_2c2e(aux: BasisSet, coords, budget: int = CHUNK_BUDGET):
                 yield ls, args, rows, mult[s:s + chunk]
 
 
-def build_3c2e(basis: BasisSet, aux: BasisSet, coords) -> torch.Tensor:
+def build_3c2e(basis: BasisSet, aux: BasisSet, coords,
+               omega: Optional[float] = None) -> torch.Tensor:
     """(P|ab) tensor [naux, nao, nao] on ``coords``' device: the blocks of
-    ``walk_3c2e``'s chunks and their ab<->ba mirrors, scattered."""
+    ``walk_3c2e``'s chunks and their ab<->ba mirrors, scattered; of the
+    erf-attenuated operator with ``omega`` (on the Coulomb operator's
+    Schwarz selection, as cctpu: the attenuated integrals are smaller)."""
     naux, nao = aux.nao, basis.nao
     out = torch.zeros((naux, nao, nao), dtype=coords.dtype,
                       device=coords.device)
     for ls, args, (P_, A_, B_), _ in walk_3c2e(basis, aux, coords):
-        blocks = eri_quartet_kernel(ls, *args(coords))[:, :, 0]
+        blocks = eri_quartet_kernel(ls, *args(coords), omega=omega)[:, :, 0]
         out[P_, A_, B_] = blocks
         out[P_, B_.transpose(2, 3), A_.transpose(2, 3)] = \
             blocks.transpose(2, 3)
     return out
 
 
-def build_2c2e(aux: BasisSet, coords) -> torch.Tensor:
-    """(P|Q) Coulomb metric [naux, naux] on ``coords``' device."""
+def build_2c2e(aux: BasisSet, coords,
+               omega: Optional[float] = None) -> torch.Tensor:
+    """(P|Q) Coulomb metric [naux, naux] on ``coords``' device (the
+    erf-attenuated one with ``omega``)."""
     naux = aux.nao
     out = torch.zeros((naux, naux), dtype=coords.dtype, device=coords.device)
     for ls, args, (P_, Q_), _ in walk_2c2e(aux, coords):
-        blocks = eri_quartet_kernel(ls, *args(coords))[:, :, 0, :, 0]
+        blocks = eri_quartet_kernel(ls, *args(coords),
+                                    omega=omega)[:, :, 0, :, 0]
         out[P_, Q_] = blocks
         out[Q_.transpose(1, 2), P_.transpose(1, 2)] = blocks.transpose(1, 2)
     return out
@@ -281,7 +294,7 @@ class _BContractions:
                 raise NotImplementedError(
                     "DF K contracted with dm (cocc=None) has no kernel on "
                     "the card: cctpu has no TPU kernel for it and only "
-                    "response code uses it (ROADMAP.md queue 2 item 5)")
+                    "response code uses it (ROADMAP.md queue 2 item C)")
             return torch.einsum("pik,...kl,pjl->...ij", B, dm, B)
         if isinstance(cocc, (tuple, list)):          # spin-resolved
             return torch.stack([self._k_of(B, None, c) for c in cocc])
@@ -299,13 +312,16 @@ class _BContractions:
         return df_j_fast(B, dm.contiguous()), K
 
 
-class DFJK(_BContractions):
+class DFJK(_BContractions, LRCache):
     """Density-fitted J/K builder.
 
     B[P,i,j] = sum_Q Linv[P,Q] (Q|ij), built on ``coords``' device:
       1. (P|Q) and (P|ab) from the quartet kernel, class by class,
       2. Linv from ``metric_factor``,
       3. B = Linv @ X as one f64 matmul (X freed right after).
+    The long-range exchange of a range-separated functional runs the same
+    contractions on B_lr, built the same way from the erf-attenuated
+    integrals (``prepare_lr``).
     """
 
     def __init__(self, mol, coords=None, beta: float = 1.8,
@@ -315,23 +331,43 @@ class DFJK(_BContractions):
         basis = mol.basis_set
         self.aux = autoaux(basis, beta=beta, extra_l=extra_l,
                            lmax_cap=lmax_cap)
-        naux, nao = self.aux.nao, basis.nao
-        M = build_2c2e(self.aux, coords)
+        self._init_lr(basis, coords)
         # kept for the DF nuclear gradient: M^+ = Linv^T Linv
-        self._Linv = metric_factor(M)
+        self.B, self._Linv = self._factor()
+
+    def _factor(self, omega=None):
+        """(B, Linv) of the Coulomb operator, or (B_lr, Linv_lr) of the
+        erf-attenuated one with ``omega``, its metric factored at rcond
+        1e-10 (cctpu's ``_ensure_lr``)."""
+        basis, coords = self._basis, self._coords
+        naux, nao = self.aux.nao, basis.nao
+        M = build_2c2e(self.aux, coords, omega)
+        Linv = metric_factor(M) if omega is None else \
+            metric_factor(M, rcond=1e-10)
         del M
-        X = build_3c2e(basis, self.aux, coords)
-        B = self._Linv @ X.reshape(naux, nao * nao)
+        X = build_3c2e(basis, self.aux, coords, omega)
+        B = Linv @ X.reshape(naux, nao * nao)
         del X
-        self.B = B.reshape(self._Linv.shape[0], nao, nao)
+        return B.reshape(Linv.shape[0], nao, nao), Linv
+
+    _build_lr = _factor
+
+    def k_lr(self, dm, omega: float, cocc=None):
+        """Long-range exchange K_lr through B_lr (``prepare_lr``):
+        ``df_k_fast`` on B_lr per occupied factor on the card (its plain
+        twin on the CPU)."""
+        return self._k_of(self.prepare_lr(omega)[0], dm, cocc)
 
     @classmethod
     def from_tensors(cls, aux: BasisSet, B: torch.Tensor,
-                     Linv: torch.Tensor) -> "DFJK":
+                     Linv: torch.Tensor, lr=None) -> "DFJK":
         """A builder on a given aux basis, B [nkeep, nao, nao] and Linv
-        [nkeep, naux] (another package's DF tensors, say) with no build."""
+        [nkeep, naux] (another package's DF tensors, say) with no build;
+        ``lr`` {omega: (B_lr, Linv_lr)} for a range-separated
+        functional."""
         jk = cls.__new__(cls)
         jk.aux, jk.B, jk._Linv = aux, B, Linv
+        jk._init_lr(given=lr)
         return jk
 
 
@@ -369,15 +405,12 @@ def cholesky_B(mol, coords: torch.Tensor) -> torch.Tensor:
     return 0.5 * (B + B.transpose(1, 2))
 
 
-class CholeskyJK(_BContractions):
+class CholeskyJK(_BContractions, IncoreLR):
     """J/K from the pivoted-Cholesky factor (``cholesky_B``): the same
     contractions, and so the same Hopper kernels, as ``DFJK``, on a factor
-    exact to ``CHOLESKY_TOL``."""
+    exact to ``CHOLESKY_TOL``. Long-range exchange comes from the
+    attenuated in-core tensor (``IncoreLR``), as in cctpu."""
 
     def __init__(self, mol, coords: torch.Tensor):
         self.B = cholesky_B(mol, coords)
-
-    def k_lr(self, dm, omega: float, cocc=None):
-        raise NotImplementedError(
-            "long-range exchange through the Cholesky factor comes with the "
-            "range-separated functionals (ROADMAP.md queue 1 item 10)")
+        self._init_lr(mol.basis_set, coords)

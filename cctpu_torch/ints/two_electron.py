@@ -12,7 +12,10 @@ A 3c2e integral (P|ab) is the same kernel with a dummy s-function (exponent
 ``walk_4c`` walks the unique 4-center shell quartets in chunks; over it,
 ``build_eri_incore`` scatters the full in-core tensor and
 ``energy_2e_direct`` contracts each block with the density at once (the
-direct energy, and by autograd the direct nuclear gradient).
+direct energy, and by autograd the direct nuclear gradient). With
+``omega`` every builder gives the erf-attenuated operator of the
+range-separated functionals; ``IncoreLR`` is their long-range exchange
+from the attenuated in-core tensor.
 """
 
 from __future__ import annotations
@@ -63,11 +66,15 @@ def _sign_vec(lcd: int) -> np.ndarray:
 
 
 def eri_quartet_kernel(ls: Tuple[int, int, int, int],
-                       eA, cA, A, eB, cB, B, eC, cC, C, eD, cD, D):
+                       eA, cA, A, eB, cB, B, eC, cC, C, eD, cD, D,
+                       omega: Optional[float] = None):
     """Contracted spherical ERI blocks [..., nsA, nsB, nsC, nsD].
 
     e*: [..., np*] exponents (padded with 1s), c*: [..., np*] coefficients
-    (padded with 0s), centers [..., 3]; ``...`` is the quartet batch."""
+    (padded with 0s), centers [..., 3]; ``...`` is the quartet batch. With
+    ``omega`` the operator is the attenuated erf(omega r)/r of the
+    range-separated functionals: with s = omega^2/(alpha + omega^2), R is
+    evaluated at s*alpha and the prefactor scaled by sqrt(s)."""
     la, lb, lc, ld = ls
     lab, lcd = la + lb, lc + ld
     dev, dt = eA.device, eA.dtype
@@ -96,6 +103,10 @@ def eri_quartet_kernel(ls: Tuple[int, int, int, int],
     PQ = Pf[..., :, None, :] - Qf[..., None, :, :]
     pref = 2.0 * math.pi ** 2.5 / (pf[..., :, None] * qf[..., None, :]
                                    * torch.sqrt(ps))
+    if omega is not None:
+        s = omega * omega / (alpha + omega * omega)
+        alpha = s * alpha
+        pref = pref * torch.sqrt(s)
     Rb = r_box(lab + lcd, alpha, PQ) * pref[..., None]  # [..., Kab, Kcd, Tb]
     idx = torch.as_tensor(_gather_idx(lab, lcd), device=dev)
     Rbig = Rb[..., idx]                                # [..., Kab,Kcd,T1,T2]
@@ -299,17 +310,15 @@ def build_eri_incore(basis: BasisSet, coords,
                      omega: Optional[float] = None) -> torch.Tensor:
     """The full (ij|kl) tensor [nao, nao, nao, nao] in f64 on ``coords``'
     device: every unique quartet of ``walk_4c`` (no screening, as cctpu),
-    its block written to all 8 symmetric places. Plain writes, no adds:
-    where index sets repeat (a pair of one shell with itself), the writes
-    to one address come in a fixed order."""
-    if omega is not None:
-        raise NotImplementedError(
-            "the erf-attenuated in-core ERIs (omega) come with the "
-            "range-separated functionals (ROADMAP.md queue 1 item 10)")
+    its block written to all 8 symmetric places, of the erf-attenuated
+    operator with ``omega``. Plain writes, no adds: where index sets
+    repeat (a pair of one shell with itself), the writes to one address
+    come in a fixed order."""
     n = basis.nao
     out = torch.zeros(n ** 4, dtype=coords.dtype, device=coords.device)
     for ls, args, (A, B, C, D), _ in walk_4c(basis, coords, screen=False):
-        blocks = eri_quartet_kernel(ls, *args(coords)).reshape(-1)
+        blocks = eri_quartet_kernel(ls, *args(coords),
+                                    omega=omega).reshape(-1)
         a = A[:, :, None, None, None]
         b = B[:, None, :, None, None]
         c = C[:, None, None, :, None]
@@ -319,6 +328,59 @@ def build_eri_incore(basis: BasisSet, coords,
                            (c, d, b, a), (d, c, b, a)):
             out[(((i * n + j) * n + k) * n + l).reshape(-1)] = blocks
     return out.reshape(n, n, n, n)
+
+
+def exchange_view(eri: torch.Tensor) -> torch.Tensor:
+    """The [nao^2, nao^2] matrix (ij, kl) -> (ik|jl) of an (ij|kl) tensor
+    [nao, nao, nao, nao]: K_ij = sum_kl (ik|jl) D_kl is one matrix product
+    with it (``contract_view``). A copy: the tensor can be freed after."""
+    n2 = eri.shape[0] * eri.shape[1]
+    return eri.permute(0, 2, 1, 3).reshape(n2, n2)
+
+
+def contract_view(view: torch.Tensor, dm: torch.Tensor) -> torch.Tensor:
+    """A [nao^2, nao^2] view times a [nao, nao] or [..., nao, nao] dm, as
+    the dm's shape."""
+    d = dm.reshape(-1, dm.shape[-1] ** 2).T
+    return (view @ d).T.reshape(dm.shape)
+
+
+class LRCache:
+    """The attenuated tensors of a J/K builder's long-range exchange, built
+    once per omega (``prepare_lr``, which returns them) from the basis and
+    coordinates the builder was made from. A builder made on given tensors
+    (no basis) holds only the ones it was given, and raises for another
+    omega. Subclasses set them with ``_init_lr`` and build with
+    ``_build_lr``."""
+
+    def _init_lr(self, basis=None, coords=None, given=None):
+        self._basis, self._coords = basis, coords
+        self._lr = dict(given or {})
+
+    def prepare_lr(self, omega: float):
+        if omega not in self._lr:
+            if self._basis is None:
+                raise ValueError(f"no attenuated tensors at omega {omega} "
+                                 "and no basis to build them from")
+            self._lr[omega] = self._build_lr(omega)
+        return self._lr[omega]
+
+
+class IncoreLR(LRCache):
+    """Long-range exchange of the range-separated functionals from the
+    erf-attenuated in-core tensor (cctpu's ``k_lr`` of its in-core and
+    Cholesky builders), kept in exchange order only: K_lr is one matrix
+    product. cctpu computes it outside any Pallas kernel, so no kernel of
+    the port runs here."""
+
+    def _build_lr(self, omega: float):
+        return exchange_view(build_eri_incore(self._basis, self._coords,
+                                              omega))
+
+    def k_lr(self, dm, omega: float, cocc=None):
+        """K_lr of a [nao, nao] or [2, nao, nao] dm (``cocc`` is not
+        needed)."""
+        return contract_view(self.prepare_lr(omega), dm)
 
 
 def e2_densities(dm, k_weight: float):
@@ -333,14 +395,16 @@ def e2_densities(dm, k_weight: float):
 def chunk_energy_2e(blocks, rows, mult, Dt, Dks, kw: float):
     """A chunk's share of E_2e: sum_q mult_q [1/2 (ab|cd) Dt_ab Dt_cd
     - kw/8 sum_s (ab|cd) (Ds_ac Ds_bd + Ds_ad Ds_bc)] over its blocks
-    [nq, sa, sb, sc, sd] with AO indices ``rows`` (A, B, C, D)."""
+    [nq, sa, sb, sc, sd] with AO indices ``rows`` (A, B, C, D); the
+    exchange part alone for a ``Dt`` of None."""
     A, B, C, D = rows
 
     def g(M, X, Y):
         return M[X[:, :, None], Y[:, None, :]]
 
     mb = mult[:, None, None, None, None] * blocks
-    e = 0.5 * torch.einsum("qabcd,qab,qcd->", mb, g(Dt, A, B), g(Dt, C, D))
+    e = 0.0 if Dt is None else 0.5 * torch.einsum(
+        "qabcd,qab,qcd->", mb, g(Dt, A, B), g(Dt, C, D))
     if kw:
         for Dk in Dks:
             e = e - 0.125 * kw * (

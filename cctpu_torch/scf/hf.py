@@ -28,41 +28,47 @@ from cctpu_torch.core.basis import (BasisSet, build_basis, get_basis_text,
                                     parse_nwchem)
 from cctpu_torch.core.molecule import Molecule
 from cctpu_torch.device import DTYPE, default_device
+from cctpu_torch.dft.dispersion import dispersion_energy
 from cctpu_torch.ints.one_electron import build_int1e_eager
-from cctpu_torch.ints.two_electron import build_eri_incore
+from cctpu_torch.ints.two_electron import (IncoreLR, build_eri_incore,
+                                           contract_view, exchange_view)
 from cctpu_torch.scf.diis import diis_init, diis_update
 
 
-class IncoreJK:
+class IncoreJK(IncoreLR):
     """J/K from the full in-core ERI tensor, as two matrix products over
     its [nao^2, nao^2] views: J_ij = sum_kl (ij|kl) D_kl on the tensor as
     built, K_ij = sum_kl (ik|jl) D_kl on a copy in exchange order made once
-    here (twice the tensor's memory, and no copy per call). cctpu computes
-    the same einsums outside any Pallas kernel, so no kernel of the port
-    runs here."""
+    here (twice the tensor's memory, and no copy per call); K_lr of a
+    range-separated functional from the attenuated tensor
+    (``IncoreLR``). cctpu computes the same einsums outside any Pallas
+    kernel, so no kernel of the port runs here."""
 
     def __init__(self, mol: Molecule, coords: torch.Tensor):
         self._set(build_eri_incore(mol.basis_set, coords))
+        self._init_lr(mol.basis_set, coords)
 
     @classmethod
-    def from_eri(cls, eri: torch.Tensor) -> "IncoreJK":
-        """A builder on a given (ij|kl) tensor [nao, nao, nao, nao]
-        (another package's, say) with no build."""
+    def from_eri(cls, eri: torch.Tensor, lr=None) -> "IncoreJK":
+        """A builder on a given (ij|kl) tensor [nao, nao, nao, nao] (another
+        package's, say) with no build; ``lr`` {omega: attenuated tensor}
+        for a range-separated functional."""
         jk = cls.__new__(cls)
         jk._set(eri)
+        jk._init_lr(given={om: exchange_view(e)
+                           for om, e in (lr or {}).items()})
         return jk
 
     def _set(self, eri):
         n2 = eri.shape[0] * eri.shape[1]
         self.eri = eri.reshape(n2, n2)
-        self.eri_k = eri.permute(0, 2, 1, 3).reshape(n2, n2)
+        self.eri_k = exchange_view(eri)
 
     def __call__(self, dm, with_k: bool = True, cocc=None):
         """(J, K) of a [nao, nao] or [2, nao, nao] dm (K None without
         ``with_k``); ``cocc`` is not needed."""
-        d = dm.reshape(-1, dm.shape[-1] ** 2).T
-        J = (self.eri @ d).T.reshape(dm.shape)
-        K = (self.eri_k @ d).T.reshape(dm.shape) if with_k else None
+        J = contract_view(self.eri, dm)
+        K = contract_view(self.eri_k, dm) if with_k else None
         return J, K
 
 
@@ -284,7 +290,14 @@ class SCFBase:
         self.get_jk_builder()
         dm = (torch.as_tensor(dm0, dtype=DTYPE, device=self.device)
               if dm0 is not None else self.init_guess_dm())
+        func = getattr(self, "func", None)
+        if func is not None and func.rsh is not None:
+            # the attenuated tensors are set-up, not part of cycle 1
+            self._jk.prepare_lr(func.rsh[0])
+        # the terms constant in dm: nuclear repulsion and dispersion
         e_nuc = self.mol.energy_nuc()
+        if func is not None:
+            e_nuc += dispersion_energy(func, self.mol)
         conv_tol_grad = o.conv_tol_grad or max(math.sqrt(o.conv_tol), 1e-7)
         # the dE-waiving exit (three cycles below the gradient tolerance)
         # gates on a stricter threshold than the plain conv_tol_grad

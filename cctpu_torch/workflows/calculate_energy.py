@@ -1,8 +1,9 @@
 """Single-point energy + MO analysis workflow.
 
-Port of ``cctpu/workflows/calculate_energy.py``: SMILES -> 3D -> HF, BLYP
-or B3LYP single point (UHF/UKS for ``--spin`` != 0); HOMO/LUMO/gap (the
-alpha spin's when open shell), dipole moment; dual short/log reports.
+Port of ``cctpu/workflows/calculate_energy.py``: SMILES -> 3D -> HF or
+DFT single point with any functional of the registry (UHF/UKS for
+``--spin`` != 0); HOMO/LUMO/gap (the alpha spin's when open shell),
+dipole moment; dual short/log reports.
 """
 
 from __future__ import annotations

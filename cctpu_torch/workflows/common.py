@@ -1,7 +1,8 @@
 """Shared workflow machinery: flag contract, logging, method dispatch.
 
 Port of ``cctpu/workflows/common.py`` for the methods the port has
-(``hf``, ``blyp`` and ``b3lyp``; RHF/RKS for closed shells, UHF/UKS for
+(``hf`` and every functional of ``dft/xc.py``'s registry, with the
+``-d``/``-d2`` suffix; RHF/RKS for closed shells, UHF/UKS for
 ``spin != 0``; in-core J/K up to nao 160, density fitted above it or with
 ``--density-fit``). The flag contract,
 the dual short/log reports and their naming scheme
@@ -51,7 +52,8 @@ def add_common_args(p: argparse.ArgumentParser, default_method="b3lyp",
                     default_basis="6-31g*"):
     p.add_argument("--smiles", required=True, help="input molecule SMILES")
     p.add_argument("--method", default=default_method,
-                   help="hf | blyp | b3lyp (the methods ported so far)")
+                   help="hf | lda | pbe | pbe0 | blyp | b3lyp | m06-2x | "
+                        "cam-b3lyp | wb97x-d | ... (mp2 is not ported)")
     p.add_argument("--basis", default=default_basis)
     p.add_argument("--charge", type=int, default=None,
                    help="default: formal charge from SMILES")

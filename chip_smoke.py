@@ -96,15 +96,41 @@ Run from the root of a checkout. Phases, one printed line or more each:
    their default routes (in-core): rc 0, the xyz, csv and report files,
    converged, no imaginary mode.
 
+9. ``df_k`` at phenol's B_lr (9a's SCF; wB97X-D, omega 0.2, the
+   attenuated metric factored at rcond 1e-10) against its plain version
+   (f64 <= 1e-12 relative, repeats bitwise equal), kernel / plain /
+   library / bound times, B_lr's rows, bytes and build seconds;
+9a. phenol DF-wB97X-D/6-31G* (grid level 2, conv_tol 1e-10) against
+   cctpu's oracle (<= 1e-8 Ha), its dispersion energy, the fused kernel
+   and ``df_k`` (K_lr) each once a cycle, s/cycle beside phase 3's B3LYP;
+9b. its gradient as 3e (conv_tol 1e-12): cctpu's CPU-f64 gradient
+   (<= 1e-7), three central differences (<= 1e-6), invariance, bitwise
+   repeat, no J/K launch, the seconds of each term (``3c_lr``, ``2c_lr``
+   and ``disp`` among them), peak memory and s/iter;
+9c. phenol DF-M06-2X/6-31G* (meta-GGA) against its oracle, water
+   DF-M06-2X's energy and gradient against cctpu's;
+9d. NH2 DF-UwB97X-D/6-31G* from its UB3LYP density: energy and gradient
+   against cctpu's (the same start), ``df_j`` once and ``df_k`` four times
+   a cycle;
+9e. water/6-31G* DF energies of LDA, ``lda,vwn3``, PW92, PBE, PBE0,
+   B3LYP5, M06, CAM-B3LYP and ``b3lyp-d`` against their oracles, and
+   CAM-B3LYP's gradient against cctpu's; wB97X-D in core (no kernel) and
+   with Cholesky J/K against theirs, and both gradients against cctpu's;
+9f. the ``energy`` CLI with ``--method wb97x-d`` on phenol in core and
+   with ``--density-fit`` (against the Python API's SCF at the CLI's own
+   geometry, <= 1e-10 Ha), and the ``opt`` CLI on water with CAM-B3LYP.
+
 The oracles of 8, 8b and 8d (``OPT_ORACLES``) come from
-``python scripts/make_opt_oracles.py <case>``.
+``python scripts/make_opt_oracles.py <case>``, those of 9a-9e
+(``RSH_ORACLES``) from ``python scripts/make_rsh_oracles.py <case>``.
 
 Any failure raises: the script then exits non-zero without its last line.
 The line before the last lists each kernel with its launches on the main
 path, its error, its time beside its plain version's and its bound, and
 its launches on the Cholesky phases (7, 7c) and its numbers at 7c's
-factor, and its launches in the optimizations (8-8c) and the FD Hessian
-(8d); a ``clock`` line after each group of phases gives the seconds
+factor, its launches in the optimizations (8-8c), the FD Hessian (8d)
+and the range-separated SCFs (9a, 9c-9e), and ``df_k``'s numbers at
+B_lr (9); a ``clock`` line after each group of phases gives the seconds
 since the start. The last line is ``{"ok": true, "device": {...}}``.
 Needs no network and imports nothing of JAX or of the JAX package.
 """
@@ -366,6 +392,95 @@ OPT_ORACLES = {
     },
 }
 
+# cctpu's CPU-f64 energies and gradients of the range-separated slice (Ha,
+# Ha/bohr; atoms in the order of the geometries of
+# cctpu_torch/utils/measure.py), as scripts/make_rsh_oracles.py prints
+# them: cctpu's own SCFs on the CPU, f64, 6-31G*, grid level 2, DF unless
+# named in-core or Cholesky (cd); energies (_e) at conv_tol 1e-10,
+# gradients at conv_tol 1e-12 and conv_tol_grad 1e-8 with every term in
+# f64 (the long-range 3c/2c terms on B_lr, the direct long-range term in
+# core, the dispersion gradient); NH2 from its converged UB3LYP density
+RSH_ORACLES = {
+    "phenol_wb97xd_e": -306.8784916717092,  # 13 cycles, E_disp -4.840316e-03
+    "phenol_wb97xd": {  # 22 cycles, E_disp -4.840316e-03
+        "E": -306.87849167172055,
+        "grad": [
+            [-9.935144470656e-03, -3.707765995541e-03, 1.191634960731e-15],
+            [1.635537691398e-02, 1.734343529414e-02, -8.618930010596e-16],
+            [2.039164866519e-02, -1.193567927349e-02, 3.078053504809e-15],
+            [-6.860229237869e-04, -1.744600464901e-02, 2.156322166536e-16],
+            [-2.288268414399e-02, -1.377725810577e-02, 1.503550385188e-15],
+            [-1.076956949471e-02, 9.040578151487e-03, -3.478040983713e-16],
+            [-9.015325996884e-03, 1.587859627126e-02, 2.575270529149e-15],
+            [1.939448867825e-02, 1.090943360088e-02, -3.744328231551e-16],
+            [8.107661191667e-04, -6.372133168918e-04, 6.104869884496e-16],
+            [1.526096225721e-03, -1.482252263590e-03, -4.829745758818e-16],
+            [-1.662506394084e-04, -8.195670972361e-04, 2.456698651413e-16],
+            [-1.509428470753e-03, -1.866366074340e-03, 2.116262271246e-16],
+            [-3.513950462035e-03, -1.499936541810e-03, 9.735894040315e-18],
+        ],
+    },
+    "phenol_m062x_e": -307.3248754910387,  # 13 cycles, E_disp 0.000000e+00
+    "water_m062x": {  # 11 cycles, E_disp 0.000000e+00
+        "E": -76.37212643113494,
+        "grad": [
+            [-1.351846176375e-15, -7.202294275280e-15, -9.245053725354e-03],
+            [4.079807363979e-16, -6.508136301330e-03, 4.622526862675e-03],
+            [1.022188682029e-15, 6.508136301339e-03, 4.622526862681e-03],
+        ],
+    },
+    "nh2_uwb97xd": {  # 14 cycles, E_disp -3.819412e-05
+        "E": -55.750457357168294,
+        "grad": [
+            [5.179394601029e-16, -1.462750787905e-15, 4.501253447141e-03],
+            [-3.729723318507e-16, -2.440744248751e-03, -2.250626723570e-03],
+            [-2.539509819925e-16, 2.440744248753e-03, -2.250626723569e-03],
+        ],
+    },
+    "water_wb97xd_incore": {  # 12 cycles, E_disp -2.683122e-05
+        "E": -76.2944557739467,
+        "grad": [
+            [-1.642029028340e-16, -2.835021709446e-16, -7.106807340151e-03],
+            [8.911606420611e-17, -4.981121353423e-03, 3.553403670079e-03],
+            [-1.209324986366e-16, 4.981121353424e-03, 3.553403670079e-03],
+        ],
+    },
+    "water_wb97xd_cd_e": -76.29445577394547,  # 10 cycles, E_disp -2.683122e-05
+    "water_wb97xd_cd": {  # 11 cycles, E_disp -2.683122e-05
+        "E": -76.29445577394546,
+        "grad": [
+            [2.859107335939e-16, 2.046423762564e-16, -7.106807199747e-03],
+            [-3.346220564143e-17, -4.981121281965e-03, 3.553403599880e-03],
+            [2.853358996734e-17, 4.981121281967e-03, 3.553403599880e-03],
+        ],
+    },
+    "water_lda_e": -75.84095356567761,  # 9 cycles, E_disp 0.000000e+00
+    "water_lda_vwn3_e": -76.03637556091951,  # 9 cycles, E_disp 0.000000e+00
+    "water_pw92_e": -75.83814239447301,  # 9 cycles, E_disp 0.000000e+00
+    "water_pbe_e": -76.31981083667148,  # 9 cycles, E_disp 0.000000e+00
+    "water_pbe0_e": -76.32384215779321,  # 8 cycles, E_disp 0.000000e+00
+    "water_b3lyp5_e": -76.36966955924855,  # 8 cycles, E_disp 0.000000e+00
+    "water_m06_e": -76.37377358996682,  # 8 cycles, E_disp 0.000000e+00
+    "water_camb3lyp_e": -76.41520246399854,  # 9 cycles, E_disp 0.000000e+00
+    "water_camb3lyp": {  # 12 cycles, E_disp 0.000000e+00
+        "E": -76.41520246399877,
+        "grad": [
+            [-2.030806152599e-15, -1.020565943843e-14, -1.030190234410e-02],
+            [4.948045064059e-16, -6.903555144173e-03, 5.150951172047e-03],
+            [9.357436114512e-16, 6.903555144183e-03, 5.150951172057e-03],
+        ],
+    },
+    "water_b3lypd_e": -76.40684663187416,  # 8 cycles, E_disp -3.768104e-05
+}
+WATER_XC = ("lda", "lda,vwn3", "pw92", "pbe", "pbe0", "b3lyp5", "m06",
+            "cam-b3lyp", "b3lyp-d")
+
+
+def water_key(xc: str) -> str:
+    """The ``RSH_ORACLES`` key of water's DF energy with ``xc``."""
+    return f"water_{xc.replace(',', '_').replace('-', '')}_e"
+
+
 
 def check(cond, msg):
     if not cond:
@@ -499,12 +614,14 @@ def phase_kernel_j_k(dev):
 
 
 def run_scf(cls, atoms, dev, spin=0, density_fit=True, basis="6-31g*",
-            conv_tol=1e-10, **kw):
-    """One SCF through the Python API with the kernels' launch counts reset
-    just before and read just after; returns (mf, E, info). ``df_build_s``
-    is the J/K builder's build (DF tensors, the in-core tensor or the
-    Cholesky factor); ``peak_mem_GB`` the card's peak over set-up and
-    SCF."""
+            conv_tol=1e-10, dm0=None, **kw):
+    """One SCF through the Python API (from ``dm0`` when given) with the
+    kernels' launch counts reset just before and read just after; returns
+    (mf, E, info). ``df_build_s`` is the J/K builder's build (DF tensors,
+    the in-core tensor or the Cholesky factor), ``lr_build_s`` that of a
+    range-separated functional's attenuated tensors (B_lr, or the
+    attenuated in-core tensor); ``peak_mem_GB`` the card's peak over
+    set-up and SCF."""
     import torch
     from cctpu_torch.core.molecule import Molecule
     mol = Molecule.from_atoms(atoms, spin=spin, basis=basis)
@@ -519,19 +636,26 @@ def run_scf(cls, atoms, dev, spin=0, density_fit=True, basis="6-31g*",
     torch.cuda.synchronize()
     t_df = time.time() - t0
     t0 = time.time()
+    rsh = getattr(getattr(mf, "func", None), "rsh", None)
+    if rsh is not None:
+        mf._jk.prepare_lr(rsh[0])
+    torch.cuda.synchronize()
+    t_lr = time.time() - t0
+    t0 = time.time()
     if hasattr(mf, "_prepare_xc_f64"):                 # RKS, UKS
         mf._prepare_xc_f64()
     torch.cuda.synchronize()
     t_ao = time.time() - t0
     reset_counts()
     t0 = time.time()
-    e = mf.kernel()
+    e = mf.kernel(dm0=dm0)
     torch.cuda.synchronize()
     t_scf = time.time() - t0
     launches = counts()
     info = {"E": e, "converged": mf.converged, "cycles": mf.n_cycles,
             "s_per_cycle": t_scf / mf.n_cycles, "scf_s": t_scf,
-            "grids_s": t_grid, "df_build_s": t_df, "ao_cache_s": t_ao,
+            "grids_s": t_grid, "df_build_s": t_df, "lr_build_s": t_lr,
+            "ao_cache_s": t_ao,
             "nao": mol.nao, "density_fit": density_fit,
             "launches": launches,
             "peak_mem_GB": torch.cuda.max_memory_allocated(dev) / 1e9}
@@ -540,16 +664,17 @@ def run_scf(cls, atoms, dev, spin=0, density_fit=True, basis="6-31g*",
     return mf, e, info
 
 
-def scf_kernels(mf, names) -> dict:
+def scf_kernels(mf, names, B=None) -> dict:
     """The named kernels against their plain versions at an SCF's own
-    factor B [naux, nao, nao], density and occupied factor (f64, <= 1e-12
-    relative, repeats bitwise equal), with kernel / plain / library /
-    bound times. ``df_j`` takes two densities: an open-shell SCF's two
-    spins, else the density and a second one made from it; ``df_j_nset1``
-    the (alpha) density alone; ``df_k`` the (alpha) occupied factor."""
+    factor B [naux, nao, nao] (or the given ``B``, such as its B_lr),
+    density and occupied factor (f64, <= 1e-12 relative, repeats bitwise
+    equal), with kernel / plain / library / bound times. ``df_j`` takes
+    two densities: an open-shell SCF's two spins, else the density and a
+    second one made from it; ``df_j_nset1`` the (alpha) density alone;
+    ``df_k`` the (alpha) occupied factor."""
     import torch
     from cctpu_torch.ops import df_j, df_jk, df_k
-    B = mf._jk.B
+    B = mf._jk.B if B is None else B
     dm = mf.dm.contiguous()
     C = mf._factor_cocc(dm)
     if dm.dim() == 3:
@@ -837,14 +962,14 @@ def phase_c16h34(dev):
           f"C16H34 ran df_j's {plan_j['kind']}/{plan_j2['kind']} plans")
 
 
-def phase_cli(smiles, extra, tag, need):
+def phase_cli(smiles, extra, tag, need, method="b3lyp"):
     """The ``energy`` CLI through cli.main; ``need`` names the kernel that
     must have launched, or is None where none may (the in-core route)."""
     from cctpu_torch.workflows import cli
     reset_counts()
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.time()
-        rc = cli.main(["energy", "--smiles", smiles, "--method", "b3lyp",
+        rc = cli.main(["energy", "--smiles", smiles, "--method", method,
                        "--basis", "6-31g*", "--grid-level", "2", *extra,
                        "--output-dir", tmp])
         wall = time.time() - t0
@@ -1189,16 +1314,18 @@ def phase_hessian(dev):
     return n_all
 
 
-def phase_cli_opt():
+def phase_cli_opt(runs=(("opt", ("_optimized.xyz",)),
+                        ("opt-freq", ("_optimized.xyz", "_ir.csv"))),
+                  extra=(), tag="cli"):
     """8e. The ``opt`` and ``opt-freq`` CLIs on water, default routes (in
-    core: no J/K kernel), on the card."""
+    core: no J/K kernel), on the card; ``extra`` arguments for all."""
     from cctpu_torch.workflows import cli
-    for name, files in (("opt", ("_optimized.xyz",)),
-                        ("opt-freq", ("_optimized.xyz", "_ir.csv"))):
+    for name, files in runs:
         reset_counts()
         with tempfile.TemporaryDirectory() as tmp:
             t0 = time.time()
-            rc = cli.main([name, "--smiles", "O", "--output-dir", tmp])
+            rc = cli.main([name, "--smiles", "O", *extra, "--output-dir",
+                           tmp])
             wall = time.time() - t0
             names = os.listdir(tmp)
             report = [f for f in names if f.endswith("_short_report.txt")]
@@ -1213,7 +1340,7 @@ def phase_cli_opt():
                      else "converged=True" in text)
         no_imag = ("no imaginary frequencies" in text if name == "opt"
                    else "imaginary: 0" in text)
-        emit({"phase": f"cli_{name}", "rc": rc, "wall_s": wall,
+        emit({"phase": f"{tag}_{name}", "rc": rc, "wall_s": wall,
               "files": sorted(names), "converged": converged,
               "no_imaginary_mode": no_imag, "launches": counts()})
         check(rc == 0 and not missing and converged and no_imag,
@@ -1221,6 +1348,170 @@ def phase_cli_opt():
               f"{converged}, no imaginary mode {no_imag}")
         check(not any(counts().values()),
               f"{name} CLI's in-core route launched {counts()}")
+
+
+def rsh_launches(tag, n, cycles, open_shell):
+    """The DF kernels of a range-separated SCF with ``cycles`` cycles: the
+    fused J/K and ``df_k`` (K_lr on B_lr) once a cycle (closed shell), else
+    ``df_j`` once and ``df_k`` four times a cycle (K and K_lr per spin)."""
+    want = ({"df_jk_fused": 0, "df_j": cycles, "df_k": 4 * cycles}
+            if open_shell else
+            {"df_jk_fused": cycles, "df_j": 0, "df_k": cycles})
+    check(n == want, f"{tag}: launches {n}, expected {want}")
+
+
+def rsh_gradient(tag, mf, info, fd_comps, oracle):
+    """``phase_gradient`` of a range-separated or dispersion-corrected SCF,
+    whose per-term seconds must include the long-range terms (``3c_lr`` and
+    ``2c_lr`` on the DF route, ``2e_lr`` in core and with Cholesky J/K)
+    and ``disp``."""
+    res = phase_gradient(tag, mf, info, fd_comps, oracle)
+    want = {"disp"} if mf.func.dispersion else set()
+    if mf.func.rsh is not None:
+        direct = mf.density_fit in (False, None, "cd")
+        want |= {"2e_lr"} if direct else {"3c_lr", "2c_lr"}
+    check(want <= set(res["terms_s"]),
+          f"{tag}: terms {sorted(res['terms_s'])} lack {sorted(want)}")
+    return res
+
+
+def phase_rsh_phenol(dev, info_b3lyp):
+    """9a. Phenol DF-wB97X-D/6-31G* against cctpu's oracle, with the
+    dispersion energy, B_lr's rows, bytes and build seconds, the launches
+    (the fused kernel and df_k once a cycle) and s/cycle beside phase 3's
+    B3LYP; 9. df_k at this SCF's B_lr against its plain version."""
+    from cctpu_torch.dft.dispersion import dispersion_energy
+    from cctpu_torch.dft.rks import RKS
+    mf, e, info = run_scf(RKS, PHENOL, dev, xc="wb97x-d")
+    de = abs(e - RSH_ORACLES["phenol_wb97xd_e"])
+    B_lr = mf._jk.prepare_lr(mf.func.rsh[0])[0]
+    emit({"phase": "phenol_wb97xd_631gs", "abs_dE_vs_oracle": de,
+          "E_disp": dispersion_energy(mf.func, mf.mol),
+          "naux_lr": int(B_lr.shape[0]), "B_lr_GB": B_lr.numel() * 8 / 1e9,
+          "s_per_cycle_b3lyp_phase3": info_b3lyp["s_per_cycle"], **info})
+    check(mf.converged and de <= 1e-8, f"phenol wB97X-D |dE| {de:.3e}")
+    rsh_launches("phenol_wb97xd", info["launches"], mf.n_cycles, False)
+    out = scf_kernels(mf, ("df_k",), B=B_lr)["df_k"]
+    C = mf._factor_cocc(mf.dm)
+    emit({"phase": "df_k_at_b_lr", "shape": [int(B_lr.shape[0]),
+                                             int(B_lr.shape[1]),
+                                             int(C.shape[1])], **out})
+    return mf, info, out
+
+
+def phase_rsh_m062x(dev):
+    """9c. Phenol DF-M06-2X/6-31G* (meta-GGA, 54 % exact exchange) against
+    its oracle; water DF-M06-2X's energy and gradient against cctpu's."""
+    from cctpu_torch.dft.rks import RKS
+    mf, e, info = run_scf(RKS, PHENOL, dev, xc="m06-2x")
+    de = abs(e - RSH_ORACLES["phenol_m062x_e"])
+    emit({"phase": "phenol_m062x_631gs", "abs_dE_vs_oracle": de, **info})
+    check(mf.converged and de <= 1e-8, f"phenol M06-2X |dE| {de:.3e}")
+    launches_per_cycle("phenol_m062x", info["launches"], mf.n_cycles, False)
+    n = info["launches"]
+    del mf
+    orc = RSH_ORACLES["water_m062x"]
+    mf, _, _ = run_scf(RKS, WATER, dev, xc="m06-2x")
+    rsh_gradient("gradient_water_m062x", mf, None, [], orc["grad"])
+    de = abs(mf.e_tot - orc["E"])
+    check(de <= 1e-8, f"water M06-2X |dE| {de:.3e}")
+    return n
+
+
+def phase_rsh_nh2(dev):
+    """9d. NH2 DF-UwB97X-D/6-31G* from its converged UB3LYP density, SCF
+    and gradient against cctpu's (the same start); df_j once and df_k four
+    times a cycle."""
+    from cctpu_torch.dft.rks import UKS
+    orc = RSH_ORACLES["nh2_uwb97xd"]
+    mf0, _, _ = run_scf(UKS, NH2, dev, spin=1, xc="b3lyp")
+    mf, e, info = run_scf(UKS, NH2, dev, spin=1, xc="wb97x-d", dm0=mf0.dm)
+    del mf0
+    de = abs(e - orc["E"])
+    emit({"phase": "nh2_uwb97xd_631gs", "abs_dE_vs_oracle": de,
+          "S2": mf.spin_square()[0], **info})
+    check(mf.converged and de <= 1e-8, f"NH2 wB97X-D |dE| {de:.3e}")
+    rsh_launches("nh2_uwb97xd", info["launches"], mf.n_cycles, True)
+    rsh_gradient("gradient_nh2_uwb97xd", mf, None, [], orc["grad"])
+    return info["launches"]
+
+
+def phase_rsh_water(dev):
+    """9e. Water/6-31G*: every other registry functional's DF energy
+    against its oracle, and CAM-B3LYP's gradient (a short-range hybrid
+    fraction beside the long-range one) against cctpu's; wB97X-D on the
+    in-core route (no kernel) and with Cholesky J/K (the fused kernel a
+    cycle; K_lr from the attenuated in-core tensor) against theirs, and
+    both routes' gradients against cctpu's."""
+    from cctpu_torch.dft.rks import RKS
+    errs, n_all = {}, {}
+    for xc in WATER_XC:
+        mf, e, info = run_scf(RKS, WATER, dev, xc=xc)
+        errs[xc] = abs(e - RSH_ORACLES[water_key(xc)])
+        check(mf.converged, f"water {xc} did not converge")
+        n = info["launches"]
+        n_all = {k: n_all.get(k, 0) + n[k] for k in n}
+        if xc == "cam-b3lyp":
+            mf_cam = mf
+    emit({"phase": "water_functionals_631gs", "abs_dE_vs_oracle": errs,
+          "launches": n_all})
+    check(max(errs.values()) <= 1e-8, f"water functionals |dE| {errs}")
+    rsh_gradient("gradient_water_camb3lyp", mf_cam, None, [],
+                 RSH_ORACLES["water_camb3lyp"]["grad"])
+    del mf_cam
+    orc = RSH_ORACLES["water_wb97xd_incore"]
+    mf_cd, e_cd, info_cd = run_scf(RKS, WATER, dev, density_fit="cd",
+                                   xc="wb97x-d")
+    mf, e, info = run_scf(RKS, WATER, dev, density_fit=False, xc="wb97x-d")
+    de_cd = abs(e_cd - RSH_ORACLES["water_wb97xd_cd_e"])
+    de = abs(e - orc["E"])
+    emit({"phase": "water_wb97xd_incore_cd", "abs_dE_incore": de,
+          "abs_dE_cd": de_cd, "incore": info, "cd": info_cd})
+    check(de <= 1e-8 and de_cd <= 1e-8, f"water wB97X-D in-core {de:.2e}, "
+          f"Cholesky {de_cd:.2e}")
+    check(not any(info["launches"].values()),
+          f"in-core wB97X-D launched {info['launches']}")
+    launches_per_cycle("water_wb97xd_cd", info_cd["launches"],
+                       mf_cd.n_cycles, False)
+    rsh_gradient("gradient_incore_water_wb97xd", mf, None, [], orc["grad"])
+    rsh_gradient("gradient_cd_water_wb97xd", mf_cd, None, [],
+                 RSH_ORACLES["water_wb97xd_cd"]["grad"])
+    return {k: n_all[k] + info_cd["launches"][k] for k in n_all}
+
+
+def phase_rsh_cli():
+    """9f. The ``energy`` CLI with ``--method wb97x-d`` on phenol, on the
+    default (in-core) route and with ``--density-fit``; the second against
+    the Python API's SCF at the CLI's own geometry (<= 1e-10 Ha). The
+    ``opt`` CLI on water with CAM-B3LYP/6-31G*: converged, no imaginary
+    mode."""
+    from cctpu_torch.io.embed3d import smiles_to_molecule
+    from cctpu_torch.workflows import calculate_energy
+    from cctpu_torch.workflows.common import make_scf
+    phase_cli("Oc1ccccc1", [], "cli_energy_wb97xd_incore", None,
+              method="wb97x-d")
+    reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        e_cli = calculate_energy.main(
+            ["--smiles", "Oc1ccccc1", "--method", "wb97x-d", "--basis",
+             "6-31g*", "--grid-level", "2", "--density-fit", "--output-dir",
+             tmp])
+        wall = time.time() - t0
+    n = counts()
+    mol = smiles_to_molecule("Oc1ccccc1", charge=None, spin=0,
+                             basis="6-31g*")
+    mf = make_scf(mol, "wb97x-d", True, grid_level=2)
+    e_api = mf.kernel()
+    de = abs(e_cli - e_api)
+    emit({"phase": "cli_energy_wb97xd_df", "E": e_cli, "wall_s": wall,
+          "abs_dE_vs_api": de, "launches": n})
+    check(mf.converged and de <= 1e-10, f"wB97X-D CLI vs API |dE| {de:.2e}")
+    check(n["df_jk_fused"] > 0 and n["df_k"] == n["df_jk_fused"],
+          f"wB97X-D DF CLI launches {n}")
+    phase_cli_opt(runs=(("opt", ("_optimized.xyz",)),),
+                  extra=("--method", "cam-b3lyp", "--basis", "6-31g*"),
+                  tag="cli_cam_b3lyp")
 
 
 def mark(t0, after):
@@ -1260,6 +1551,7 @@ def main():
     phase_kernel_j_k(dev)
     mark(t_start, "2a")
     e_phenol, fused["launches"], mf, info = phase_phenol(dev)
+    info_phenol = info
     # O y, the hydroxyl H x, C1 y (the molecule lies in z = 0)
     fd_comps = [(6, 1), (7, 0), (0, 1)]
     phase_gradient("gradient_phenol_b3lyp", mf, info, fd_comps,
@@ -1325,6 +1617,22 @@ def main():
     mark(t_start, "8e")
     check(all(n_opt.values()), f"a kernel never ran in 8-8c: {n_opt}")
 
+    mf, info, k_lr = phase_rsh_phenol(dev, info_phenol)
+    n_rsh = dict(info["launches"])
+    rsh_gradient("gradient_phenol_wb97xd", mf, info, fd_comps,
+                 RSH_ORACLES["phenol_wb97xd"]["grad"])
+    del mf
+    torch.cuda.empty_cache()
+    mark(t_start, "9b")
+    for n in (phase_rsh_m062x(dev), phase_rsh_nh2(dev),
+              phase_rsh_water(dev)):
+        n_rsh = {k: n_rsh[k] + n[k] for k in n_rsh}
+    torch.cuda.empty_cache()
+    mark(t_start, "9e")
+    phase_rsh_cli()
+    mark(t_start, "9f")
+    check(all(n_rsh.values()), f"a kernel never ran in 9-9e: {n_rsh}")
+
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
     cd_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -1341,8 +1649,11 @@ def main():
                        "launches_cholesky": n_cd[name],
                        "launches_opt": n_opt[name],
                        "launches_hessian": n_hess[name],
+                       "launches_rsh": n_rsh[name],
                        "cholesky_shape": {k: cd_kernels[name][k]
-                                          for k in cd_keys}}
+                                          for k in cd_keys},
+                       **({"b_lr_shape": {k: k_lr[k] for k in cd_keys}}
+                          if name == "df_k" else {})}
                       for name, src, rep, d in rows]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

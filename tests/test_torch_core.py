@@ -8,6 +8,7 @@ from cctpu.core import basis_data as j_bd
 from cctpu.core.molecule import Molecule as JMolecule
 from cctpu_torch.core import basis_data as t_bd
 from cctpu_torch.core.molecule import Molecule as TMolecule
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 WATER = "O 0 0 0.1173; H 0 0.7572 -0.4692; H 0 -0.7572 -0.4692"
 PHENOL = ("C 0.0000 1.3970 0.0000; C 1.2098 0.6985 0.0000; "

@@ -19,6 +19,7 @@ from cctpu.ops.df_jk_pallas import df_jk_reference as j_reference
 from cctpu.ops.df_jk_pallas import df_k_fast as j_df_k_fast
 from cctpu_torch.ints.df import _BContractions
 from cctpu_torch.ops import df_j, df_k
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 # cctpu's tests/test_pallas_ops.py shapes (naux, nao, nocc), unaligned
 SHAPES = [(96, 32, 8), (37, 16, 3), (83, 24, 5)]

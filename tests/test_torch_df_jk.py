@@ -19,6 +19,7 @@ from cctpu.ops.df_jk_pallas import df_jk_reference as j_reference
 from cctpu_torch.core.molecule import Molecule as TMolecule
 from cctpu_torch.ints.df import DFJK as TDFJK
 from cctpu_torch.ops import df_jk
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 WATER = "O 0 0 0.1173; H 0 0.7572 -0.4692; H 0 -0.7572 -0.4692"
 # cctpu's tests/test_pallas_ops.py shapes (naux, nao, nocc), unaligned

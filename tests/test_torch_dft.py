@@ -19,6 +19,7 @@ from cctpu_torch.dft import xc as t_xc
 from cctpu_torch.dft.grids import Grids as TGrids
 from cctpu_torch.dft.numint import eval_ao as t_eval_ao
 from cctpu_torch.dft.rks import RKS as TRKS
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 WATER = "O 0 0 0.1173; H 0 0.7572 -0.4692; H 0 -0.7572 -0.4692"
 
@@ -76,8 +77,9 @@ def test_functional_registry():
     b3 = t_xc.get_functional("B3LYP")
     assert b3.hyb == pytest.approx(0.20) and b3.xctype == "GGA"
     assert t_xc.get_functional("hf").exc is None
-    with pytest.raises(NotImplementedError, match="not in the PyTorch port"):
-        t_xc.get_functional("pbe0")
+    with pytest.raises(ValueError, match="unknown XC functional"):
+        t_xc.get_functional("b3lyp-x")
+    assert t_xc.get_functional("pbe0").hyb == pytest.approx(0.25)
 
 
 def test_b3lyp_exc_vxc_match_cctpu(mols):

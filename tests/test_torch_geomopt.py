@@ -30,6 +30,7 @@ from cctpu_torch.hessian import thermo as tthermo
 from cctpu_torch.scf.hf import RHF as TRHF
 from cctpu_torch.utils.measure import PHENOL, WATER, WATER_START
 from cctpu_torch.workflows import cli
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 
 def _mols(atoms):

@@ -39,6 +39,7 @@ from cctpu_torch.interop import (basis_from_numpy, dfjk_from_numpy,
 from cctpu_torch.scf.hf import RHF as TRHF
 from cctpu_torch.scf.hf import UHF as TUHF
 from cctpu_torch.utils.measure import NH2, WATER
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 SCF_OPTS = dict(density_fit=True, conv_tol=1e-12, device="cpu")
 # the aux sets held against cctpu stop at l = 2 (the default is 4): cctpu

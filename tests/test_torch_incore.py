@@ -42,6 +42,7 @@ from cctpu_torch.scf.hf import IncoreJK
 from cctpu_torch.utils import chkfile as tchk
 from cctpu_torch.utils.measure import NH2, WATER
 from cctpu_torch.workflows import calculate_energy
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = dict(device="cpu", conv_tol=1e-12)

@@ -30,6 +30,7 @@ from cctpu_torch.ints.df import autoaux as t_autoaux
 from cctpu_torch.ints.df import build_2c2e, build_3c2e
 from cctpu_torch.ints.df import metric_factor as t_metric_factor
 from cctpu_torch.ints.one_electron import build_int1e_eager as t_int1e
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 WATER = "O 0 0 0.1173; H 0 0.7572 -0.4692; H 0 -0.7572 -0.4692"
 

@@ -30,6 +30,7 @@ from cctpu_torch.scf import hf as t_hf
 from cctpu_torch.scf.hf import UHF as TUHF
 from cctpu_torch.workflows import cli
 from cctpu_torch.workflows.common import homo_lumo, make_scf
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 OH = "O 0 0 0; H 0 0 0.97"
 NH2 = "N 0 0 0; H 0 0.8036 0.6347; H 0 -0.8036 0.6347"

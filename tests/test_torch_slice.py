@@ -25,6 +25,7 @@ from cctpu_torch.scf.hf import RHF as TRHF
 from cctpu_torch.scf.hf import IncoreJK
 from cctpu_torch.workflows import cli
 from cctpu_torch.workflows.common import make_scf
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 WATER = "O 0 0 0.1173; H 0 0.7572 -0.4692; H 0 -0.7572 -0.4692"
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -101,8 +102,9 @@ def test_cli_unported_paths_say_so(capsys, tmp_path):
     assert isinstance(mf.get_jk_builder(), IncoreJK)  # nao <= 160: in-core
     mf.kernel()
     assert mf.converged and -75.4 < mf.e_tot < -75.2
-    with pytest.raises(NotImplementedError):
-        make_scf(mol, "pbe0", density_fit=True, device="cpu")
+    mf = make_scf(mol, "pbe0", density_fit=True, grid_level=1, device="cpu")
+    mf.kernel()
+    assert mf.converged and mf.func.hyb == 0.25
     if not torch.cuda.is_available():
         # the card unless the caller asks for the CPU: no silent fallback
         for build in (lambda: make_scf(mol, "b3lyp", grid_level=1),

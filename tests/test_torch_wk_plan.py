@@ -9,6 +9,7 @@ import torch
 
 from cctpu_torch.ops import df_j
 from cctpu_torch.ops import plan as P
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 CAP = P.SMEM_CAP_H100
 # (nao, nocc): chip_smoke.py's kernel shapes, phenol, phenoxyl (both spins),
