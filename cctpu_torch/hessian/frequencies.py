@@ -36,17 +36,19 @@ class HarmonicResult:
 
 
 def hessian_fd(mf_factory: Callable[[Molecule], object], mol: Molecule,
-               dm0=None):
-    """Cartesian Hessian by central differences (step ``FD_STEP`` bohr) of
-    analytic gradients, and the dipole derivatives of the same SCFs.
+               dm0=None, step: float = FD_STEP, with_dipole: bool = True,
+               verbose: int = 0):
+    """Cartesian Hessian by central differences (``step`` bohr) of
+    analytic gradients, and, ``with_dipole``, the dipole derivatives of the
+    same SCFs.
 
-    Returns (H [3N,3N], dmu_dR [3N,3]), host numpy. Each of the 6N
+    Returns (H [3N,3N], dmu_dR [3N,3] or None), host numpy. Each of the 6N
     displaced SCF solves is warm-started from dm0.
     """
     natm = mol.natm
     n3 = 3 * natm
     H = np.zeros((n3, n3))
-    dmu = np.zeros((n3, 3))
+    dmu = np.zeros((n3, 3)) if with_dipole else None
 
     for k in range(n3):
         ia, d = divmod(k, 3)
@@ -54,15 +56,19 @@ def hessian_fd(mf_factory: Callable[[Molecule], object], mol: Molecule,
         mus = []
         for sgn in (+1, -1):
             c = mol.coords.copy()
-            c[ia, d] += sgn * FD_STEP
+            c[ia, d] += sgn * step
             mf = mf_factory(mol.with_coords(c))
             mf.opts.verbose = 0
             mf.kernel(dm0=dm0)
             gs.append(scf_gradient(mf).cpu().numpy().ravel())
-            mus.append(mf.dip_moment(unit="au"))
+            if with_dipole:
+                mus.append(mf.dip_moment(unit="au"))
             del mf
-        H[k] = (gs[0] - gs[1]) / (2 * FD_STEP)
-        dmu[k] = (mus[0] - mus[1]) / (2 * FD_STEP)
+        H[k] = (gs[0] - gs[1]) / (2 * step)
+        if with_dipole:
+            dmu[k] = (mus[0] - mus[1]) / (2 * step)
+        if verbose:
+            print(f"  hessian displacement {k + 1}/{n3} done")
     H = 0.5 * (H + H.T)
     return H, dmu
 
@@ -140,12 +146,15 @@ def _is_linear(mol: Molecule, tol: float = 1e-6) -> bool:
     return s[1] < tol
 
 
-def hessian_auto(mf, factory, mol, log=None):
+def hessian_auto(mf, factory, mol, dm0=None, with_dipole: bool = True,
+                 log=None, step: float = FD_STEP):
     """The Hessian of the converged SCF ``mf`` at ``mol``: the FD of
-    analytic gradients, warm-started from ``mf``'s density. cctpu tries
-    its analytic CPHF Hessian first; that is not ported, so this takes the
-    FD route outright. Returns (H [3N,3N], dmu_dR [3N,3])."""
+    analytic gradients, each displaced SCF warm-started from ``dm0``.
+    cctpu tries its analytic CPHF Hessian first; that is not ported, so
+    this takes the FD route outright. Returns (H [3N,3N], dmu_dR [3N,3] or
+    None)."""
     if log:
         log("  Hessian: FD of analytic gradients (analytic CPHF: ROADMAP "
             "queue 1 item 12)")
-    return hessian_fd(factory, mol, dm0=mf.make_rdm1())
+    return hessian_fd(factory, mol, dm0=dm0, step=step,
+                      with_dipole=with_dipole)

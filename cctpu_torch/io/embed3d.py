@@ -25,6 +25,7 @@ import torch
 from scipy.optimize import minimize
 
 from cctpu_torch.core import elements as elem
+from cctpu_torch.io import jax_prng
 from cctpu_torch.io.smiles import MolGraph, parse_smiles
 
 _ORDER_FACTOR = {1: 1.0, 2: 0.87, 3: 0.78}
@@ -283,10 +284,7 @@ def embed_molecule(g: MolGraph, seed: int = 42):
                                           torch.zeros_like(dr)))
         return e + stereo_energy(x)
 
-    # seeded start from numpy (the JAX reference draws it from
-    # jax.random, so the two packages embed to different geometries)
-    rng = np.random.default_rng(seed)
-    x0 = rng.standard_normal((n, 3)) * (0.5 * n ** (1 / 3) + 1)
+    x0 = jax_prng.normal(seed, (n, 3)) * (0.5 * n ** (1 / 3) + 1)
 
     for fn in (stress, ff_energy):
         def val_grad(v, fn=fn):

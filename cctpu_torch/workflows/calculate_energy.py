@@ -1,7 +1,7 @@
 """Single-point energy + MO analysis workflow.
 
-Port of ``cctpu/workflows/calculate_energy.py``: SMILES -> 3D -> HF or
-DFT single point with any functional of the registry (UHF/UKS for
+Port of ``cctpu/workflows/calculate_energy.py``: SMILES -> 3D -> HF,
+MP2 or DFT single point with any functional of the registry (UHF/UKS for
 ``--spin`` != 0); HOMO/LUMO/gap (the alpha spin's when open shell),
 dipole moment; dual short/log reports.
 """
@@ -36,6 +36,9 @@ def main(argv=None):
                         grid_level=args.grid_level, device=args.device)
         out.print(f"\nTotal energy: {e:.10f} Ha  "
                   f"({e * 627.5094740631:.4f} kcal/mol)")
+        if hasattr(mf, "e_corr"):
+            out.print(f"  SCF energy:  {mf.e_tot:.10f} Ha")
+            out.print(f"  MP2 corr:    {mf.e_corr:.10f} Ha")
         out.print(f"converged: {mf.converged}  cycles: {mf.n_cycles}")
 
         homo, lumo = homo_lumo(mf)

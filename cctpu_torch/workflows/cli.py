@@ -1,7 +1,8 @@
 """`python -m cctpu_torch.workflows.cli <workflow> ...` — the dispatcher
-over the workflow CLIs. ``energy``, ``opt`` and ``opt-freq`` are ported so
-far; the other names of cctpu's dispatcher are listed and say that they are
-not ported yet."""
+over the workflow CLIs. ``energy``, ``opt``, ``opt-freq``, ``ir``,
+``interaction``, ``reaction`` and ``bde`` are ported so far; the other
+names of cctpu's dispatcher are listed and say that they are not ported
+yet."""
 
 from __future__ import annotations
 
@@ -12,10 +13,16 @@ _WORKFLOWS = {
                "single-point energy"),
     "opt": ("cctpu_torch.workflows.optimize_geometry", "geometry opt + freq"),
     "opt-freq": ("cctpu_torch.workflows.opt_freq", "production opt+freq+IR"),
+    "ir": ("cctpu_torch.workflows.calculate_ir_spectrum", "IR spectrum"),
+    "interaction": ("cctpu_torch.workflows.calculate_interaction",
+                    "intermolecular interaction + BSSE"),
+    "reaction": ("cctpu_torch.workflows.calculate_reaction_energy",
+                 "reaction energetics"),
+    "bde": ("cctpu_torch.workflows.calculate_bde",
+            "bond dissociation energies"),
 }
 # cctpu's other workflows, in ROADMAP.md queue 1 order
-_NOT_PORTED = ("ir", "uv", "solvent", "interaction",
-               "reaction", "bde", "nmr", "casscf", "ms-pred")
+_NOT_PORTED = ("uv", "solvent", "nmr", "casscf", "ms-pred")
 
 
 def main(argv=None):

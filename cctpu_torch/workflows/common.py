@@ -1,10 +1,10 @@
 """Shared workflow machinery: flag contract, logging, method dispatch.
 
-Port of ``cctpu/workflows/common.py`` for the methods the port has
-(``hf`` and every functional of ``dft/xc.py``'s registry, with the
+Port of ``cctpu/workflows/common.py``: ``hf``, ``mp2`` (on an RHF or
+UHF reference) and every functional of ``dft/xc.py``'s registry, with the
 ``-d``/``-d2`` suffix; RHF/RKS for closed shells, UHF/UKS for
 ``spin != 0``; in-core J/K up to nao 160, density fitted above it or with
-``--density-fit``). The flag contract,
+``--density-fit``. The flag contract,
 the dual short/log reports and their naming scheme
 ``{smiles}_{script}_{method}_{basis}_{short|log}_report.txt`` are the
 reference's.
@@ -52,8 +52,8 @@ def add_common_args(p: argparse.ArgumentParser, default_method="b3lyp",
                     default_basis="6-31g*"):
     p.add_argument("--smiles", required=True, help="input molecule SMILES")
     p.add_argument("--method", default=default_method,
-                   help="hf | lda | pbe | pbe0 | blyp | b3lyp | m06-2x | "
-                        "cam-b3lyp | wb97x-d | ... (mp2 is not ported)")
+                   help="hf | mp2 | lda | pbe | pbe0 | blyp | b3lyp | "
+                        "m06-2x | cam-b3lyp | wb97x-d | ...")
     p.add_argument("--basis", default=default_basis)
     p.add_argument("--charge", type=int, default=None,
                    help="default: formal charge from SMILES")
@@ -94,18 +94,22 @@ def open_reports(args, script: str):
     return out, short, log, tag
 
 
+def resolve_basis(name: str, log=None) -> str:
+    """Every basis of the reference's defaults is embedded; an unknown name
+    raises when the molecule is built."""
+    return name
+
+
 def make_scf(mol: Molecule, method: str, density_fit: Optional[bool] = None,
              grid_level: int = 3, **opts):
-    """Method string -> SCF object; ``opts`` go to the SCF (``device``
-    among them: the card unless ``device="cpu"``)."""
+    """Method string -> SCF object (the RHF/UHF reference for ``mp2``);
+    ``opts`` go to the SCF (``device`` among them: the card unless
+    ``device="cpu"``)."""
     m = method.lower()
     if density_fit is None:
         density_fit = mol.nao > 160
-    if m == "mp2":
-        raise NotImplementedError("MP2 is not ported yet (ROADMAP.md "
-                                  "queue 1 item 15)")
     open_shell = mol.spin != 0
-    if m == "hf":
+    if m in ("hf", "mp2"):
         from cctpu_torch.scf.hf import RHF, UHF
         mf = (UHF if open_shell else RHF)(mol, density_fit=density_fit,
                                           **opts)
@@ -145,7 +149,9 @@ def report_phases(log=print):
 def run_scf(mol, method, density_fit=None, dm0=None, log=None, **opts):
     """SCF with the fallback ladder: preferred settings -> damped/level-
     shifted retry from the unconverged density. Warm-starts from, and
-    stores a converged SCF to, the configured SCF cache."""
+    stores a converged SCF to, the configured SCF cache. For ``mp2`` the
+    MP2 energy follows the SCF: ``mf.e_corr`` and ``mf.e_tot_mp2`` are set
+    and the MP2 total is returned."""
     timer = (PHASES.phase(f"scf:{method}") if PHASES is not None
              else contextlib.nullcontext())
     with timer:
@@ -158,21 +164,28 @@ def run_scf(mol, method, density_fit=None, dm0=None, log=None, **opts):
         if not mf.converged:
             if log:
                 log("SCF not converged; retrying with level shift + damping")
+            # the retry's settings replace the caller's (cctpu passes
+            # max_cycle twice here when the caller gave one: ROADMAP.md
+            # queue 3)
             mf2 = make_scf(mol, method, density_fit,
-                              level_shift=0.3, damp=0.3, max_cycle=200,
-                              **opts)
+                           **{**opts, "level_shift": 0.3, "damp": 0.3,
+                              "max_cycle": 200})
             e2 = mf2.kernel(dm0=mf.make_rdm1())
             if mf2.converged:
                 mf, e = mf2, e2
         if _SCF_CACHE is not None and mf.converged:
             _SCF_CACHE.put(mf, method)
+    if method.lower() == "mp2":
+        from cctpu_torch.mp.mp2 import MP2
+        mf.e_corr, mf.e_tot_mp2 = MP2(mf).kernel()
+        return mf, mf.e_tot_mp2
     return mf, e
 
 
 def build_molecule(args, basis=None, spin=None, log=None) -> Molecule:
     return smiles_to_molecule(args.smiles, charge=args.charge,
                               spin=args.spin if spin is None else spin,
-                              basis=basis or args.basis)
+                              basis=resolve_basis(basis or args.basis, log))
 
 
 def homo_lumo(mf):

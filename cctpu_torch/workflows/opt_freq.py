@@ -40,7 +40,8 @@ def main(argv=None):
         out.print(f"  E = {res.e_tot:.10f} Ha  converged={res.converged}")
 
         out.print("[3/5] Hessian + dipole derivatives")
-        H, dmu = hessian_auto(res.mf, factory, res.mol, log=out.print)
+        H, dmu = hessian_auto(res.mf, factory, res.mol,
+                              dm0=res.mf.make_rdm1(), log=out.print)
         ha = harmonic_analysis(res.mol, H, dmu)
 
         out.print("[4/5] harmonic analysis")

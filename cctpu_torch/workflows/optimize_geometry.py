@@ -64,7 +64,7 @@ def main(argv=None):
         if not args.skip_freq:
             out.print("\ncomputing Hessian (FD of analytic gradients)...")
             H, dmu = hessian_auto(res.mf, factory, res.mol,
-                                  log=out.print)
+                                  dm0=res.mf.make_rdm1(), log=out.print)
             ha = harmonic_analysis(res.mol, H, dmu)
             out.print(f"frequencies (cm-1): "
                       f"{np.array2string(ha.freq_wavenumber, precision=1)}")

@@ -61,8 +61,8 @@ Run from the root of a checkout. Phases, one printed line or more each:
    (one and two densities) and DF-K kernels against their plain versions
    at this SCF's factor [K, nao, nao] (f64 <= 1e-12, repeats bitwise) with
    kernel, plain, library and bound times;
-7d. the direct nuclear gradient of 7b's SCF, as 3e (no oracle: central
-   differences, invariance, bitwise repeat, s/iter), and that of 7c's
+7d. the direct nuclear gradient of 7b's SCF, as 3e (no oracle: a central
+   difference at O y, invariance, bitwise repeat, s/iter), and that of 7c's
    Cholesky SCF against it (<= 1e-7 Ha/bohr);
 7e. phase 6's three cases in-core against cctpu's CPU-f64 in-core
    gradients (<= 1e-7 Ha/bohr; ``scripts/make_incore_oracles.py``);
@@ -92,9 +92,9 @@ Run from the root of a checkout. Phases, one printed line or more each:
    the Hessian <= 5e-5 Ha/bohr^2 and real frequencies <= 1 cm^-1 from
    cctpu's analytic (CPHF) Hessian (cctpu's B3LYP and DF analytic
    Hessians did not finish on the CPU: see scripts/make_opt_oracles.py);
-8e. the ``opt`` (with frequencies) and ``opt-freq`` CLIs on water on
-   their default routes (in-core): rc 0, the xyz, csv and report files,
-   converged, no imaginary mode.
+8e. the ``opt`` (``--skip-freq``: its frequencies are 10e's) and
+   ``opt-freq`` CLIs on water on their default routes (in-core): rc 0,
+   the xyz, csv and report files, converged, no imaginary mode.
 
 9. ``df_k`` at phenol's B_lr (9a's SCF; wB97X-D, omega 0.2, the
    attenuated metric factored at rcond 1e-10) against its plain version
@@ -120,19 +120,51 @@ Run from the root of a checkout. Phases, one printed line or more each:
    with ``--density-fit`` (against the Python API's SCF at the CLI's own
    geometry, <= 1e-10 Ha), and the ``opt`` CLI on water with CAM-B3LYP.
 
+10. MP2 (6-31G*, SCFs at conv_tol 1e-12): water RMP2 in core and on its
+   Cholesky factor, NH2 UMP2 in core, phenol DF-RHF then MP2 on its B;
+   e_corr against cctpu's CPU-f64 MP2 (<= 1e-8 Ha), MP2 seconds and peak
+   memory;
+10a. ``energy --method mp2 --density-fit`` on phenol: the printed
+   correlation energy against the Python API's at the CLI's geometry
+   (<= 1e-10 Ha);
+10b. the ``bde`` CLI on ethane (HF/STO-3G, --limit 1), on hydrazine
+   (B3LYP/6-31G* at --tier b3lyp: the parent and both NH2 optimized;
+   ethane's methyl radical makes the optimizer diverge in both packages)
+   and on phenol
+   (B3LYP/6-31G*, --density-fit, --limit 2: C-O and O-H): every BDE
+   against cctpu's serial path (<= 1e-3 kcal/mol);
+10c. ``bde --smiles Oc1ccccc1 --limit 2`` at its defaults (M06-2X/
+   def2-TZVP, DF by size, nao 253): rc 0, the CSV, both bonds, all three
+   kernels launched, s per SCF, peak memory (no oracle: cctpu's CPU cost
+   is out of reach); then the kernels against their plain versions at the
+   parent SCF's own factor, as 7c;
+10d. the ``reaction`` CLI on "O + [H+] -> [OH3+]" at its defaults (with
+   FD frequencies, in core) and on "OO + 2[H] -> 2O" with --density-fit
+   --skip-freq: dE, dE0, dH and dG against cctpu's (<= 0.01 kcal/mol);
+10e. ``ir --smiles O`` at its defaults: frequencies <= 0.05 cm^-1 and
+   intensities <= 1e-3 relative from cctpu's FD route, the table written,
+   the PNG written or skipped (no matplotlib);
+10f. ``interaction --smiles O --smiles2 O`` at its defaults (MP2/6-31+G*,
+   3.5 A, counterpoise) and with --scan over 3.0-4.0 A: E_int (CP), raw
+   and BSSE against cctpu's serial path (<= 1e-4 kcal/mol).
+
 The oracles of 8, 8b and 8d (``OPT_ORACLES``) come from
 ``python scripts/make_opt_oracles.py <case>``, those of 9a-9e
-(``RSH_ORACLES``) from ``python scripts/make_rsh_oracles.py <case>``.
+(``RSH_ORACLES``) from ``python scripts/make_rsh_oracles.py <case>``,
+those of 10-10f (``WORKFLOW_ORACLES``) from
+``python scripts/make_workflow_oracles.py <case>``.
 
 Any failure raises: the script then exits non-zero without its last line.
 The line before the last lists each kernel with its launches on the main
 path, its error, its time beside its plain version's and its bound, and
 its launches on the Cholesky phases (7, 7c) and its numbers at 7c's
 factor, its launches in the optimizations (8-8c), the FD Hessian (8d)
-and the range-separated SCFs (9a, 9c-9e), and ``df_k``'s numbers at
-B_lr (9); a ``clock`` line after each group of phases gives the seconds
-since the start. The last line is ``{"ok": true, "device": {...}}``.
-Needs no network and imports nothing of JAX or of the JAX package.
+and the range-separated SCFs (9a, 9c-9e), its launches in the
+workflows (10-10f) and its numbers at 10c's def2-TZVP factor, and
+``df_k``'s numbers at B_lr (9); a ``clock`` line after each group of
+phases gives the seconds since the start. The last line is
+``{"ok": true, "device": {...}}``. Needs no network and imports nothing
+of JAX or of the JAX package.
 """
 
 import os
@@ -475,6 +507,75 @@ RSH_ORACLES = {
 WATER_XC = ("lda", "lda,vwn3", "pw92", "pbe", "pbe0", "b3lyp5", "m06",
             "cam-b3lyp", "b3lyp-d")
 
+# cctpu's CPU-f64 results of the workflows of phases 10-10f, as
+# ``python scripts/make_workflow_oracles.py <case>`` prints them (one
+# process a case): cctpu's own workflow functions on the CPU, at the
+# port's embedded coordinates, on cctpu's serial paths, with its FD
+# Hessian route; energies in Ha, BDEs in kcal/mol. MP2: cctpu's SCF at
+# conv_tol 1e-12 and conv_tol_grad 1e-9 (6-31G*, the geometries of
+# cctpu_torch/utils/measure.py), then cctpu.mp.mp2.MP2.
+WORKFLOW_ORACLES = {
+    "mp2_water_incore": {  # cctpu on the CPU: 32.9 s
+        "e_scf": -76.00910803237767,
+        "e_corr": -0.18622962344910443,
+        "cycles": 22,
+    },
+    "mp2_water_cd": {  # cctpu on the CPU: 37.7 s
+        "e_scf": -76.00910803237353,
+        "e_corr": -0.18622962345110483,
+        "cycles": 26,
+    },
+    "mp2_nh2_incore": {  # cctpu on the CPU: 44.9 s
+        "e_scf": -55.55673345103358,
+        "e_corr": -0.1334634041577333,
+        "cycles": 41,
+    },
+    "mp2_phenol_df": {  # cctpu on the CPU: 318.1 s
+        "e_scf": -305.55312738246016,
+        "e_corr": -0.9426783514796734,
+        "cycles": 62,
+    },
+    "t_bde_ethane": {  # cctpu on the CPU: 12.6 s
+        "e_parent": -78.30286822229425,
+        "bde": {"C0-C1": 103.44332676648965},
+    },
+    "bde_hydrazine_b3lyp_tier": {  # cctpu on the CPU: 897.8 s
+        "e_parent": -111.85412829630233,
+        "bde": {"N0-N1": 70.18019224552494},
+    },
+    "bde_phenol_b3lyp": {  # cctpu on the CPU: 813.0 s
+        "e_parent": -307.42144313991565,
+        "bde": {"O0-C1": 110.22830513799325, "O0-H7": 89.42266796188699},
+    },
+    "reaction_h3o": {  # cctpu on the CPU: 1601.1 s
+        "dE": -0.2686412183248592,
+        "dE0": -0.25548713986979976,
+        "dH": -0.2577932962145155,
+        "dG": -0.24631846857515427,
+    },
+    "reaction_h_df": {  # cctpu on the CPU: ~13 min a species
+        "dE": -0.29809579570033407,
+        "dE0": -0.29809579570033407,
+        "dH": -0.3028167184754409,
+        "dG": -0.2780964329312212,
+    },
+    "ir_water": {  # cctpu on the CPU: 1106.0 s
+        "e_opt": -76.40702410755149,
+        "nsteps": 4,
+        "freq": [1710.8169854546622, 3721.147681980161, 3844.9547669428225],
+        "ir": [3.4497343764841957, 0.07649826862737599, 0.8717895016239301],
+    },
+    "interaction_water": {  # cctpu on the CPU: 119.8 s
+        "e_cp": 0.003214608982887057,
+        "e_raw": 0.0024280348249305916,
+        "bsse": 0.0007865741579564656,
+    },
+    "interaction_scan": {  # cctpu on the CPU: 162.2 s
+        "scan": [0.006736831635407725, 0.0032145803596392852,
+            0.0018821844157770329],
+    },
+}
+
 
 def water_key(xc: str) -> str:
     """The ``RSH_ORACLES`` key of water's DF energy with ``xc``."""
@@ -614,7 +715,7 @@ def phase_kernel_j_k(dev):
 
 
 def run_scf(cls, atoms, dev, spin=0, density_fit=True, basis="6-31g*",
-            conv_tol=1e-10, dm0=None, **kw):
+            conv_tol=1e-10, dm0=None, max_cycle=60, **kw):
     """One SCF through the Python API (from ``dm0`` when given) with the
     kernels' launch counts reset just before and read just after; returns
     (mf, E, info). ``df_build_s`` is the J/K builder's build (DF tensors,
@@ -629,7 +730,7 @@ def run_scf(cls, atoms, dev, spin=0, density_fit=True, basis="6-31g*",
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.time()
     mf = cls(mol, density_fit=density_fit, grid_level=2, conv_tol=conv_tol,
-             max_cycle=60, device=dev, **kw)
+             max_cycle=max_cycle, device=dev, **kw)
     t_grid = time.time() - t0
     t0 = time.time()
     mf.get_jk_builder()
@@ -711,7 +812,7 @@ def scf_kernels(mf, names, B=None) -> dict:
                      "rel_err": rel, "bitwise_repeat": bitwise,
                      **alternated_ms(kern, plain, 20, library=lib),
                      **bound(*wk)}
-        if name.startswith("df_j"):
+        if name in ("df_j", "df_j_nset1"):
             out[name]["plan"] = df_j.LAST_PLAN["kind"]
         check(rel <= TOL["float64"] and bitwise,
               f"{name} at {mf.__class__.__name__}'s [{naux}, {nao}, {nocc}] "
@@ -1258,7 +1359,8 @@ def phase_hessian(dev):
         reset_counts()
         t0 = time.time()
         log = []
-        H, dmu = hessian_auto(mf, factory, mol, log=log.append)
+        H, dmu = hessian_auto(mf, factory, mol, dm0=mf.make_rdm1(),
+                              log=log.append)
         n = counts()
         ha = harmonic_analysis(mol, H, dmu)
         out[tag] = {"E": e, "wall_s": time.time() - t0, "log": log,
@@ -1314,18 +1416,21 @@ def phase_hessian(dev):
     return n_all
 
 
-def phase_cli_opt(runs=(("opt", ("_optimized.xyz",)),
-                        ("opt-freq", ("_optimized.xyz", "_ir.csv"))),
+def phase_cli_opt(runs=(("opt", ("_optimized.xyz",), ("--skip-freq",)),
+                        ("opt-freq", ("_optimized.xyz", "_ir.csv"), ())),
                   extra=(), tag="cli"):
     """8e. The ``opt`` and ``opt-freq`` CLIs on water, default routes (in
-    core: no J/K kernel), on the card; ``extra`` arguments for all."""
+    core: no J/K kernel), on the card; ``extra`` arguments for all. The
+    ``opt`` run skips its frequencies: they are the same optimization and
+    FD Hessian as 10e's ``ir`` CLI (B3LYP/6-31G*, in core), which holds
+    them against cctpu's."""
     from cctpu_torch.workflows import cli
-    for name, files in runs:
+    for name, files, args in runs:
         reset_counts()
         with tempfile.TemporaryDirectory() as tmp:
             t0 = time.time()
-            rc = cli.main([name, "--smiles", "O", *extra, "--output-dir",
-                           tmp])
+            rc = cli.main([name, "--smiles", "O", *extra, *args,
+                           "--output-dir", tmp])
             wall = time.time() - t0
             names = os.listdir(tmp)
             report = [f for f in names if f.endswith("_short_report.txt")]
@@ -1338,8 +1443,9 @@ def phase_cli_opt(runs=(("opt", ("_optimized.xyz",)),
                    if not any(f.endswith(sfx) for f in names)]
         converged = ("optimization converged" in text if name == "opt"
                      else "converged=True" in text)
-        no_imag = ("no imaginary frequencies" in text if name == "opt"
-                   else "imaginary: 0" in text)
+        no_imag = ("--skip-freq" in args
+                   or ("no imaginary frequencies" in text if name == "opt"
+                       else "imaginary: 0" in text))
         emit({"phase": f"{tag}_{name}", "rc": rc, "wall_s": wall,
               "files": sorted(names), "converged": converged,
               "no_imaginary_mode": no_imag, "launches": counts()})
@@ -1509,9 +1615,343 @@ def phase_rsh_cli():
     check(mf.converged and de <= 1e-10, f"wB97X-D CLI vs API |dE| {de:.2e}")
     check(n["df_jk_fused"] > 0 and n["df_k"] == n["df_jk_fused"],
           f"wB97X-D DF CLI launches {n}")
-    phase_cli_opt(runs=(("opt", ("_optimized.xyz",)),),
+    phase_cli_opt(runs=(("opt", ("_optimized.xyz",), ()),),
                   extra=("--method", "cam-b3lyp", "--basis", "6-31g*"),
                   tag="cli_cam_b3lyp")
+
+
+def _short_report(tmp) -> str:
+    reports = [f for f in os.listdir(tmp) if f.endswith("_short_report.txt")]
+    check(len(reports) == 1, f"no short report in {os.listdir(tmp)}")
+    with open(os.path.join(tmp, reports[0])) as f:
+        return f.read()
+
+
+def _recording(module, name):
+    """Wrap ``module.name`` so that each call's arguments and result are
+    kept (the workflows' mains print rounded numbers); returns the record
+    list and a function that restores the original."""
+    orig = getattr(module, name)
+    rec = []
+
+    def wrapped(*a, **k):
+        t0 = time.time()
+        out = orig(*a, **k)
+        rec.append((a, k, out, time.time() - t0))
+        return out
+    setattr(module, name, wrapped)
+    return rec, lambda: setattr(module, name, orig)
+
+
+def phase_mp2(dev):
+    """10. MP2 (``cctpu_torch.mp.mp2``) on SCFs at conv_tol 1e-12 and an
+    orbital gradient <= 1e-9 (6-31G*): water RHF in core and with Cholesky
+    J/K, NH2 UHF in core, phenol DF-RHF (MP2 on its B); e_corr against
+    cctpu's CPU-f64 MP2 at the same settings (<= 1e-8 Ha), the MP2
+    seconds and peak memory."""
+    import torch
+    from cctpu_torch.mp.mp2 import MP2
+    from cctpu_torch.scf.hf import RHF, UHF
+    n_all = {}
+    for key, cls, atoms, spin, df in (
+            ("mp2_water_incore", RHF, WATER, 0, False),
+            ("mp2_water_cd", RHF, WATER, 0, "cd"),
+            ("mp2_nh2_incore", UHF, NH2, 1, False),
+            ("mp2_phenol_df", RHF, PHENOL, 0, True)):
+        mf, e, info = run_scf(cls, atoms, dev, spin=spin, density_fit=df,
+                              conv_tol=1e-12, conv_tol_grad=1e-9,
+                              max_cycle=100)
+        n_all = {k: n_all.get(k, 0) + v for k, v in info["launches"].items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.time()
+        e_corr, e_tot = MP2(mf).kernel()
+        t_mp2 = time.time() - t0
+        orc = WORKFLOW_ORACLES[key]
+        de = abs(e_corr - orc["e_corr"])
+        emit({"phase": key, "e_corr": e_corr, "E_mp2": e_tot,
+              "abs_dEcorr_vs_cctpu": de,
+              "abs_dEscf_vs_cctpu": abs(e - orc["e_scf"]),
+              "mp2_s": t_mp2,
+              "mp2_peak_mem_GB": torch.cuda.max_memory_allocated(dev) / 1e9,
+              **info})
+        check(mf.converged and de <= 1e-8,
+              f"{key}: |dE_corr| {de:.2e} Ha from cctpu's")
+        del mf
+    return n_all
+
+
+def phase_cli_mp2():
+    """10a. ``energy --method mp2 --density-fit`` on phenol (6-31G*): the
+    printed correlation energy against the Python API's MP2 at the CLI's
+    own geometry (<= 1e-10 Ha)."""
+    from cctpu_torch.io.embed3d import smiles_to_molecule
+    from cctpu_torch.mp.mp2 import MP2
+    from cctpu_torch.workflows import cli
+    from cctpu_torch.workflows.common import make_scf
+    reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        rc = cli.main(["energy", "--smiles", "Oc1ccccc1", "--method", "mp2",
+                       "--basis", "6-31g*", "--density-fit", "--output-dir",
+                       tmp])
+        wall = time.time() - t0
+        text = _short_report(tmp)
+    n = counts()
+    e_corr_cli = float(text.split("MP2 corr:")[1].split()[0])
+    mol = smiles_to_molecule("Oc1ccccc1", basis="6-31g*")
+    mf = make_scf(mol, "mp2", True)
+    mf.kernel()
+    e_corr_api, _ = MP2(mf).kernel()
+    de = abs(e_corr_cli - e_corr_api)
+    emit({"phase": "cli_energy_mp2_df", "rc": rc, "e_corr": e_corr_cli,
+          "abs_dEcorr_vs_api": de, "wall_s": wall, "launches": n})
+    check(rc == 0 and "converged: True" in text and de <= 1e-10,
+          f"energy --method mp2: rc {rc}, |dE_corr| vs API {de:.2e}")
+    check(n["df_jk_fused"] > 0, f"MP2 CLI's DF-RHF launches {n}")
+    return n
+
+
+def run_bde(args):
+    """The ``bde`` CLI through cli.main; returns (rc, wall, report, the
+    CSV's rows, launches, each single point's size, cycles and seconds,
+    the parent's SCF)."""
+    from cctpu_torch.workflows import calculate_bde, cli
+    reset_counts()
+    orig = calculate_bde._serial_frag_sp
+    sps, parent = [], []
+
+    def single_point(*a, **k):
+        t0 = time.time()
+        mf, e = orig(*a, **k)
+        sps.append({"natm": mf.mol.natm, "nao": mf.mol.nao,
+                    "spin": mf.mol.spin, "cycles": mf.n_cycles,
+                    "converged": mf.converged, "s": time.time() - t0})
+        if not parent:
+            parent.append(mf)
+        return mf, e
+    calculate_bde._serial_frag_sp = single_point
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.time()
+            rc = cli.main(["bde", *args, "--output-dir", tmp])
+            wall = time.time() - t0
+            text = _short_report(tmp)
+            csvs = [f for f in os.listdir(tmp) if f.endswith("_bde.csv")]
+            check(len(csvs) == 1, f"bde {args}: no CSV")
+            with open(os.path.join(tmp, csvs[0])) as f:
+                rows = [ln.split(",") for ln in f.read().split()[1:]]
+    finally:
+        calculate_bde._serial_frag_sp = orig
+    return rc, wall, text, rows, counts(), sps, parent[0]
+
+
+def phase_bde():
+    """10b. The ``bde`` CLI: ethane HF/STO-3G (--limit 1), hydrazine
+    B3LYP/6-31G* at --tier b3lyp (parent and fragments optimized), phenol
+    B3LYP/6-31G* --density-fit --limit 2 (C-O: phenyl + OH; O-H: phenoxyl +
+    H); every BDE against cctpu's serial path (<= 1e-3 kcal/mol)."""
+    from cctpu_torch.workflows import calculate_bde
+    n_all = {}
+    for key, args in (
+            ("t_bde_ethane", ["--smiles", "CC", "--method", "hf", "--basis",
+                              "sto-3g", "--limit", "1"]),
+            ("bde_hydrazine_b3lyp_tier", ["--smiles", "NN", "--method",
+                                          "b3lyp", "--basis", "6-31g*",
+                                          "--tier", "b3lyp", "--limit",
+                                          "1"]),
+            ("bde_phenol_b3lyp", ["--smiles", "Oc1ccccc1", "--method",
+                                  "b3lyp", "--basis", "6-31g*",
+                                  "--density-fit", "--limit", "2"])):
+        # bde's main returns its results: call it for the full precision
+        rec, restore = _recording(calculate_bde, "bde_sweep")
+        try:
+            rc, wall, text, rows, n, sps, _ = run_bde(args)
+        finally:
+            restore()
+        (_, _, (e_parent, results), _), = rec
+        orc = WORKFLOW_ORACLES[key]
+        got = {lbl: b for lbl, _, _, b in results}
+        dev_kcal = max(abs(got[lbl] - b) for lbl, b in orc["bde"].items()) \
+            if set(got) == set(orc["bde"]) else float("inf")
+        emit({"phase": key, "rc": rc, "bde_kcal": got,
+              "max_abs_dBDE_vs_cctpu_kcal": dev_kcal,
+              "abs_dEparent_vs_cctpu": abs(e_parent - orc["e_parent"]),
+              "wall_s": wall, "single_points": len(sps), "launches": n})
+        check(rc == 0 and len(rows) == len(orc["bde"]) and dev_kcal <= 1e-3,
+              f"{key}: rc {rc}, BDEs {got} vs cctpu {orc['bde']}")
+        check("tier=b3lyp" in text or "batched sweep not ported" in text,
+              f"{key}: the serial path was not logged")
+        n_all = {k: n_all.get(k, 0) + v for k, v in n.items()}
+    check(all(n_all.values()), f"10b's DF phenol never ran a kernel: {n_all}")
+    return n_all
+
+
+def phase_bde_default(dev):
+    """10c. ``bde --smiles Oc1ccccc1 --limit 2`` at the CLI's defaults
+    (M06-2X/def2-TZVP, density fitted by size: nao 253): rc 0, the CSV,
+    both bonds, the fused kernel (the parent) and ``df_j``/``df_k`` (the
+    UKS fragments) launched; s per SCF, peak memory. No oracle (cctpu's
+    CPU cost at nao 253 is out of reach). Then the three kernels against
+    their plain versions at the parent SCF's own factor [naux, 253,
+    nocc], as 7c at the Cholesky factor."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    rc, wall, text, rows, n, per_scf, parent = run_bde(
+        ["--smiles", "Oc1ccccc1", "--limit", "2"])
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    emit({"phase": "bde_phenol_default", "rc": rc, "wall_s": wall,
+          "bde_kcal": {r[0]: float(r[3]) for r in rows},
+          "weakest": text.split("weakest bond:")[1].split("\n")[0].strip()
+          if "weakest bond:" in text else None,
+          "naux": int(parent._jk.B.shape[0]) if parent.density_fit
+          else None, "nao": parent.mol.nao,
+          "scfs": per_scf,
+          "s_per_scf": sum(p["s"] for p in per_scf) / len(per_scf),
+          "peak_mem_GB": peak, "launches": n})
+    check(rc == 0 and len(rows) == 2 and len(per_scf) == 5
+          and all(p["converged"] for p in per_scf),
+          f"default bde on phenol: rc {rc}, rows {rows}, SCFs {per_scf}")
+    check(parent.density_fit and all(n.values()),
+          f"default bde on phenol: launches {n}")
+    kern = scf_kernels(parent, ("df_jk_fused", "df_j", "df_j_nset1",
+                                "df_k"))
+    emit({"phase": "kernels_def2tzvp_phenol",
+          "shape": [int(parent._jk.B.shape[0]), parent.mol.nao,
+                    parent.mol.nelectron // 2], **kern})
+    del parent
+    torch.cuda.empty_cache()
+    return n, kern
+
+
+def run_reaction(text, args, key):
+    """The ``reaction`` CLI through cli.main, against cctpu's oracle: dE,
+    dE0, dH and dG from the species' full-precision values (<= 0.01
+    kcal/mol)."""
+    from cctpu_torch.workflows import calculate_reaction_energy as rx
+    from cctpu_torch.workflows import cli
+    reset_counts()
+    rec, restore = _recording(rx, "species_thermo")
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.time()
+            rc = cli.main(["reaction", "--reaction", text, *args,
+                           "--output-dir", tmp])
+            wall = time.time() - t0
+            report = _short_report(tmp)
+    finally:
+        restore()
+    n = counts()
+    table = {a[0]: out for a, _, out, _ in rec}
+    lhs, rhs = text.split("->")
+    sides = rx.parse_side(lhs), rx.parse_side(rhs)
+
+    def d(key_):
+        return (sum(c * table[s][key_] for c, s in sides[1])
+                - sum(c * table[s][key_] for c, s in sides[0]))
+    orc = WORKFLOW_ORACLES[key]
+    dev_kcal = {f"d{k}": abs(d(k) - orc[f"d{k}"]) * HARTREE2KCAL
+                for k in ("E", "E0", "H", "G")}
+    emit({"phase": key, "rc": rc, "wall_s": wall,
+          **{f"d{k}_kcal": d(k) * HARTREE2KCAL for k in ("E", "E0", "H",
+                                                          "G")},
+          "abs_vs_cctpu_kcal": dev_kcal,
+          "species_s": {a[0]: s for a, _, _, s in rec}, "launches": n})
+    check(rc == 0 and "K_eq" in report and max(dev_kcal.values()) <= 0.01,
+          f"{key}: rc {rc}, deviations from cctpu {dev_kcal} kcal/mol")
+    return n
+
+
+def phase_reaction():
+    """10d. ``reaction "O + [H+] -> [OH3+]"`` at its defaults (B3LYP/
+    6-31+G*, grid level 3, in core, with FD frequencies: no J/K kernel);
+    ``reaction "OO + 2[H] -> 2O" --density-fit --skip-freq`` (the H atom's
+    one-atom UKS path and the closed-shell optimizations on DF)."""
+    n = run_reaction("O + [H+] -> [OH3+]", [], "reaction_h3o")
+    check(not any(n.values()), f"in-core reaction launched {n}")
+    n_df = run_reaction("OO + 2[H] -> 2O", ["--density-fit", "--skip-freq"],
+                        "reaction_h_df")
+    check(all(n_df.values()), f"DF reaction launches {n_df}")
+    return n_df
+
+
+def phase_ir():
+    """10e. ``ir --smiles O`` at its defaults (B3LYP/6-31G*, grid level 3,
+    in core): frequencies <= 0.05 cm^-1 and intensities <= 1e-3 relative
+    from cctpu's FD route; the table written; the PNG written, or skipped
+    where matplotlib is missing."""
+    from cctpu_torch.workflows import calculate_ir_spectrum
+    reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        ha = calculate_ir_spectrum.main(["--smiles", "O", "--output-dir",
+                                         tmp])
+        wall = time.time() - t0
+        text = _short_report(tmp)
+        png = any(f.endswith("_ir.png") for f in os.listdir(tmp))
+    orc = WORKFLOW_ORACLES["ir_water"]
+    dfreq = float(np.abs(ha.freq_wavenumber - orc["freq"]).max())
+    dir_rel = float(np.max(np.abs(ha.ir_intensity - orc["ir"])
+                           / np.abs(orc["ir"])))
+    skipped = "IR plot skipped" in text
+    emit({"phase": "cli_ir_water", "wall_s": wall,
+          "freq_cm": ha.freq_wavenumber.tolist(),
+          "ir_km_mol": ha.ir_intensity.tolist(),
+          "max_abs_dfreq_vs_cctpu": dfreq, "max_rel_dIR_vs_cctpu": dir_rel,
+          "png": png, "png_skipped": skipped, "launches": counts()})
+    check(dfreq <= 0.05 and dir_rel <= 1e-3,
+          f"ir: frequencies {dfreq:.3f} cm^-1, IR {dir_rel:.2e} off cctpu")
+    rows = [f"{f:12.1f} {i:12.2f}  " for f, i in zip(ha.freq_wavenumber,
+                                                      ha.ir_intensity)]
+    check("assignment" in text and all(r in text for r in rows)
+          and png != skipped, f"ir: table or plot missing, png {png}")
+    check(not any(counts().values()), f"in-core ir launched {counts()}")
+
+
+def phase_interaction():
+    """10f. ``interaction --smiles O --smiles2 O`` at its defaults (MP2/
+    6-31+G*, 3.5 A, counterpoise), then with ``--scan --scan-range 3.0 4.0
+    --scan-step 0.5`` (the serial warm-start loop): E_int (CP), raw and
+    BSSE against cctpu's serial path (<= 1e-4 kcal/mol)."""
+    from cctpu_torch.workflows import calculate_interaction, cli
+    out = {}
+    for tag, extra in (("interaction_water", []),
+                       ("interaction_scan", ["--scan", "--scan-range", "3.0",
+                                             "4.0", "--scan-step", "0.5"])):
+        reset_counts()
+        rec, restore = _recording(calculate_interaction,
+                                  "interaction_energy")
+        try:
+            with tempfile.TemporaryDirectory() as tmp:
+                t0 = time.time()
+                rc = cli.main(["interaction", "--smiles", "O", "--smiles2",
+                               "O", *extra, "--output-dir", tmp])
+                wall = time.time() - t0
+                text = _short_report(tmp)
+        finally:
+            restore()
+        orc = WORKFLOW_ORACLES["interaction_water"]
+        e_cp, e_raw, corr = rec[0][2]
+        devs = [abs(e_cp - orc["e_cp"]), abs(e_raw - orc["e_raw"]),
+                abs(corr - orc["bsse"])]
+        if extra:
+            scan = [r[2][0] for r in rec[1:]]
+            devs += [abs(a - b) for a, b in
+                     zip(scan, WORKFLOW_ORACLES["interaction_scan"]["scan"])]
+            out["scan_kcal"] = [e * HARTREE2KCAL for e in scan]
+            check(len(scan) == 3 and "serial warm-start loop" in text,
+                  f"interaction scan: {len(scan)} points")
+        worst = max(devs) * HARTREE2KCAL
+        emit({"phase": f"cli_{tag}", "rc": rc, "wall_s": wall,
+              "E_int_cp_kcal": e_cp * HARTREE2KCAL,
+              "E_int_raw_kcal": e_raw * HARTREE2KCAL,
+              "bsse_kcal": corr * HARTREE2KCAL,
+              "max_abs_vs_cctpu_kcal": worst, "launches": counts(), **out})
+        check(rc == 0 and worst <= 1e-4,
+              f"{tag}: {worst:.2e} kcal/mol from cctpu's")
+        check(not any(counts().values()),
+              f"in-core interaction launched {counts()}")
 
 
 def mark(t0, after):
@@ -1586,8 +2026,10 @@ def main():
     mf_cd, n_phenol_cd, cd_kernels = phase_cholesky_phenol(dev, mf_in.e_tot)
     n_cd = {k: n_cd[k] + n_phenol_cd[k] for k in n_cd}
     mark(t_start, "7c")
+    # one central difference (O y): each FD point rebuilds the in-core
+    # tensor; the DF gradient of 3e keeps three
     res = phase_gradient("gradient_incore_phenol_b3lyp", mf_in, info_in,
-                         fd_comps, None)
+                         fd_comps[:1], None)
     del mf_in
     torch.cuda.empty_cache()
     phase_cd_gradient(mf_cd, res["gradient"])
@@ -1633,6 +2075,24 @@ def main():
     mark(t_start, "9f")
     check(all(n_rsh.values()), f"a kernel never ran in 9-9e: {n_rsh}")
 
+    n_wf = phase_mp2(dev)
+    mark(t_start, "10")
+    for phase, after in ((phase_cli_mp2, "10a"), (phase_bde, "10b")):
+        n = phase()
+        n_wf = {k: n_wf[k] + n[k] for k in n_wf}
+        mark(t_start, after)
+    n, tzvp = phase_bde_default(dev)
+    n_wf = {k: n_wf[k] + n[k] for k in n_wf}
+    mark(t_start, "10c")
+    n = phase_reaction()
+    n_wf = {k: n_wf[k] + n[k] for k in n_wf}
+    mark(t_start, "10d")
+    phase_ir()
+    mark(t_start, "10e")
+    phase_interaction()
+    mark(t_start, "10f")
+    check(all(n_wf.values()), f"a kernel never ran in 10-10f: {n_wf}")
+
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
     cd_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -1650,7 +2110,10 @@ def main():
                        "launches_opt": n_opt[name],
                        "launches_hessian": n_hess[name],
                        "launches_rsh": n_rsh[name],
+                       "launches_workflows": n_wf[name],
                        "cholesky_shape": {k: cd_kernels[name][k]
+                                          for k in cd_keys},
+                       "def2tzvp_shape": {k: tzvp[name][k]
                                           for k in cd_keys},
                        **({"b_lr_shape": {k: k_lr[k] for k in cd_keys}}
                           if name == "df_k" else {})}

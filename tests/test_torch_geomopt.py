@@ -112,7 +112,8 @@ def test_hessian_fd_harmonic_thermo_match_cctpu():
     jmf.kernel()
     tmf.kernel()
     Hj, dj = jfreq.hessian_fd(lambda m: JRHF(m), jm, dm0=jmf.dm)
-    Ht, dt = tfreq.hessian_auto(tmf, lambda m: TRHF(m, device="cpu"), tm)
+    Ht, dt = tfreq.hessian_auto(tmf, lambda m: TRHF(m, device="cpu"), tm,
+                                dm0=tmf.make_rdm1())
     assert np.abs(Ht - Hj).max() <= 1e-7
     assert np.abs(dt - dj).max() <= 1e-7
     ht = tfreq.harmonic_analysis(tm, Ht, dt)
