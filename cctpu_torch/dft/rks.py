@@ -13,7 +13,10 @@ Port of ``cctpu/dft/rks.py``:
    builder's ``k_lr`` (B_lr on the DF route);
  - meta-GGAs get the kinetic-energy densities from the AO gradients the
    cache already holds;
- - UKS keeps both spin densities stacked as [2, nao, nao].
+ - UKS keeps both spin densities stacked as [2, nao, nao];
+ - the XC kernel's action on TDDFT transition densities (``fxc_action``)
+   is a Hessian-vector product of E_xc, chunk by chunk (cctpu's
+   ``jax.jvp`` of its AD vxc).
 """
 
 from __future__ import annotations
@@ -27,6 +30,9 @@ from cctpu_torch.scf.hf import RHF, UHF
 
 # padding points sit this far away (bohr): every AO is exactly 0 there
 _PAD_AT = 1e6
+# elements of one [directions, nao, chunk] tensor in fxc_action's batched
+# Hessian-vector products (2**27: 1 GiB in f64)
+_FXC_ELEMS = 1 << 27
 
 
 def _chunk_pts(pts, w, chunk: int):
@@ -185,6 +191,38 @@ class _XCMixin:
                 exc = exc + e.detach()
                 vxc = vxc + g
         return exc, 0.5 * (vxc + vxc.transpose(-1, -2))
+
+    def fxc_action(self, dm0, P):
+        """The XC kernel's action: H P, H the Hessian of E_xc[D] at ``dm0``
+        ([nao, nao], or [2, nao, nao] for the two spins), for a batch P
+        [nvec, *dm0.shape] of directions that need not be symmetric
+        (cctpu's ``jax.jvp(jax.grad(_exc_total), (dm0,), (P,))``). Per grid
+        chunk the raw gradient g = dE/dD is taken with a graph (not
+        ``_exc_vxc``'s symmetrized one: with the GGA terms g depends on P's
+        antisymmetric part), then the Hessian-vector products
+        grad(<g, P>) for a slice of P at a time; summed over the chunks.
+        Returns [nvec, *dm0.shape], not symmetrized."""
+        self._prepare_xc_f64()
+        dm_leaf = dm0.detach().requires_grad_(True)
+        P = P.detach().to(dm0.dtype)
+        nchunk, chunk = self._w_chunks.shape
+        # directions a backward: the batched graph holds a few
+        # [slice, nao, chunk] tensors
+        per = max(1, _FXC_ELEMS // (self.mol.nao * chunk))
+        out = torch.zeros_like(P)
+        with torch.enable_grad():
+            for k in range(nchunk):
+                e = self._chunk_exc_from_ao(self.func, dm_leaf,
+                                            self._chunk_ao(k),
+                                            self._w_chunks[k])
+                g, = torch.autograd.grad(e, dm_leaf, create_graph=True)
+                for s in range(0, P.shape[0], per):
+                    h, = torch.autograd.grad(
+                        g, dm_leaf, grad_outputs=P[s:s + per],
+                        retain_graph=s + per < P.shape[0],
+                        is_grads_batched=True)
+                    out[s:s + per] += h
+        return out
 
 
 class RKS(_XCMixin, RHF):

@@ -39,6 +39,7 @@ from cctpu_torch.ints.two_electron import (CHUNK_BUDGET, IncoreLR, LRCache,
 from cctpu_torch.ops.df_j import df_j_fast
 from cctpu_torch.ops.df_jk import df_jk_fused
 from cctpu_torch.ops.df_k import df_k_fast
+from cctpu_torch.ops.df_k_dm import df_k_dm
 
 # naux above which metric_factor switches from eigh to pivoted-Cholesky
 # subset selection (the same switch point as cctpu's _EIGH_NAUX_MAX)
@@ -280,25 +281,33 @@ class _BContractions:
     """J/K contractions over a factor tensor B [naux, nao, nao]
     ((ij|kl) ~= sum_P B[P,i,j] B[P,k,l]).
 
-    Every branch but the dm-contracted K runs a Hopper kernel on the card
-    and its plain torch twin on the CPU: the fused J+K for a closed-shell
-    cocc, ``df_j_fast`` for J otherwise (both spins in one pass for a
-    [2, nao, nao] dm), and ``df_k_fast`` once per spin of a tuple cocc."""
+    Every branch runs a Hopper kernel on the card and its plain torch twin
+    on the CPU: the fused J+K for a closed-shell cocc, ``df_j_fast`` for J
+    otherwise (both spins in one pass for a [2, nao, nao] dm),
+    ``df_k_fast`` once per spin of a tuple cocc, and ``df_k_dm`` for K of
+    densities without an occupied factor (any [..., nao, nao] batch: the
+    TDDFT transition densities)."""
 
     def _k_of(self, B, dm, cocc):
         """Exchange via B: occupied-orbital form when cocc is given
         (exact for dm = C C^T; C columns carry sqrt(occupation)), else the
         dm contraction."""
         if cocc is None:
-            if B.is_cuda:
-                raise NotImplementedError(
-                    "DF K contracted with dm (cocc=None) has no kernel on "
-                    "the card: cctpu has no TPU kernel for it and only "
-                    "response code uses it (ROADMAP.md queue 2 item C)")
-            return torch.einsum("pik,...kl,pjl->...ij", B, dm, B)
+            return df_k_dm(B, dm)
         if isinstance(cocc, (tuple, list)):          # spin-resolved
             return torch.stack([self._k_of(B, None, c) for c in cocc])
         return df_k_fast(B, cocc.contiguous())
+
+    def j(self, dm):
+        """J of a batch of densities [nset, nao, nao] (any nset):
+        ``df_j_fast`` on two densities a call."""
+        return torch.cat([df_j_fast(self.B, dm[s:s + 2].contiguous())
+                          for s in range(0, dm.shape[0], 2)])
+
+    def k(self, dm):
+        """K of densities without an occupied factor, [..., nao, nao] (the
+        TDDFT transition densities): one ``df_k_dm`` call."""
+        return self._k_of(self.B, dm, None)
 
     def __call__(self, dm, with_k: bool = True, cocc=None):
         B = self.B
@@ -307,7 +316,6 @@ class _BContractions:
             # the fused single-pass J+K (the kernels take row-major
             # tensors; a caller's dm0 need not be)
             return df_jk_fused(B, dm.contiguous(), cocc.contiguous())
-        # K first: the one branch without a kernel raises before any launch
         K = self._k_of(B, dm, cocc) if with_k else None
         return df_j_fast(B, dm.contiguous()), K
 
@@ -354,8 +362,9 @@ class DFJK(_BContractions, LRCache):
 
     def k_lr(self, dm, omega: float, cocc=None):
         """Long-range exchange K_lr through B_lr (``prepare_lr``):
-        ``df_k_fast`` on B_lr per occupied factor on the card (its plain
-        twin on the CPU)."""
+        ``df_k_fast`` on B_lr per occupied factor, ``df_k_dm`` for
+        densities without one, on the card (their plain twins on the
+        CPU)."""
         return self._k_of(self.prepare_lr(omega)[0], dm, cocc)
 
     @classmethod

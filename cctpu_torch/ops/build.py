@@ -24,7 +24,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cctpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-ldl"]
-KERNELS = ("df_jk_fused", "df_j", "df_k")
+KERNELS = ("df_jk_fused", "df_j", "df_k", "df_k_dm")
 
 # compiler output of each build made by this process (ptxas register and
 # spill report), by kernel name

@@ -1,8 +1,9 @@
-// Code shared by every DF kernel library (df_j.cu, df_k.cu, df_jk_fused.cu;
-// sm_90a, FP64 and FP32): the block size, the fixed-order tree sum over a
-// block, the fixed-order sum of per-block partials, the shared-memory
-// opt-in, and the error-string entry each library exports. Every sum here
-// runs in a fixed order, so repeat calls give bitwise-equal results.
+// Code shared by every DF kernel library (df_j.cu, df_k.cu, df_jk_fused.cu,
+// df_k_dm.cu; sm_90a, FP64 and FP32): the block size, the fixed-order tree
+// sum over a block, the fixed-order sum of per-block partials, the FP64
+// tensor-core product, the shared-memory opt-in, and the error-string entry
+// each library exports. Every sum here runs in a fixed order, so repeat
+// calls give bitwise-equal results.
 
 #pragma once
 
@@ -65,6 +66,19 @@ cudaError_t launch_partial_sum(const T* w, int nblk, size_t total, int nao,
   partial_sum<T><<<static_cast<int>(blocks), threads, 0, stream>>>(
       w, nblk, total, nao, tile, out);
   return cudaGetLastError();
+}
+
+// c[16x8] += a[16x4] b[4x8] on the FP64 tensor cores. A lane (g = lane / 4,
+// t = lane % 4) holds a0 = a[g][t], a1 = a[g + 8][t], b = b[t][g] and
+// c[i] = c[g + 8 (i / 2)][2t + i % 2]. The FP64 tensor cores' full rate on
+// the H100; m8n8k4 issues at half of it (ops/bench_mma.py).
+__device__ __forceinline__ void mma1684(double (&c)[4], double a0, double a1,
+                                        double b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+      : "d"(a0), "d"(a1), "d"(b));
 }
 
 // The most dynamic shared memory one block of the current device may opt

@@ -227,18 +227,7 @@ __device__ __forceinline__ int tile_row(int g, int kt) {
                   : (g & 1) | ((g & 2) << 1) | ((g & 4) >> 1);
 }
 
-// c[16x8] += a[16x4] b[4x8]. A lane (g = lane / 4, t = lane % 4) holds
-// a0 = a[g][t], a1 = a[g + 8][t], b = b[t][g] and
-// c[i] = c[g + 8 (i / 2)][2t + i % 2]. The FP64 tensor cores' full rate on
-// the H100; m8n8k4 issues at half of it (ops/bench_mma.py).
-__device__ __forceinline__ void mma1684(double (&c)[4], double a0, double a1,
-                                        double b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 "
-      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
-      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
-      : "d"(a0), "d"(a1), "d"(b));
-}
+using dfc::mma1684;
 
 // Move (I2, off) to the row of the upper triangle of an mt2 x mt2 grid
 // that holds the entry `off` places after (I2, I2); false past the end.

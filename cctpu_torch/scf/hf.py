@@ -67,9 +67,16 @@ class IncoreJK(IncoreLR):
     def __call__(self, dm, with_k: bool = True, cocc=None):
         """(J, K) of a [nao, nao] or [2, nao, nao] dm (K None without
         ``with_k``); ``cocc`` is not needed."""
-        J = contract_view(self.eri, dm)
-        K = contract_view(self.eri_k, dm) if with_k else None
-        return J, K
+        return self.j(dm), (self.k(dm) if with_k else None)
+
+    def j(self, dm):
+        """J of a batch of densities [..., nao, nao]."""
+        return contract_view(self.eri, dm)
+
+    def k(self, dm):
+        """K of a batch of densities [..., nao, nao], none assumed
+        symmetric."""
+        return contract_view(self.eri_k, dm)
 
 
 def _aufbau_configuration(z: int) -> dict:

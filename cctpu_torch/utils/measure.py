@@ -24,6 +24,9 @@ PHENOXYL = PHENOL.replace(H_ATOM + "; ", "")
 # the small gradient cases (chip_smoke.py phase 6, tests/test_torch_grad.py)
 WATER = "O 0 0 0.1173; H 0 0.7572 -0.4692; H 0 -0.7572 -0.4692"
 NH2 = "N 0 0 0; H 0 0.8036 0.6347; H 0 -0.8036 0.6347"
+# the uv CLI's drug-sized molecule (chip_smoke.py phase 11c): nao 198 at
+# 6-31G*, so the energy/uv route takes density fitting
+ASPIRIN = "CC(=O)Oc1ccccc1C(=O)O"
 # distorted starts of the optimizations (chip_smoke.py phases 8, 8b;
 # water's is cctpu's tests/test_geomopt.py start)
 WATER_START = "O 0 0 0; H 0 0 1.05; H 0 1.02 -0.3"
@@ -123,8 +126,12 @@ def work(name, naux, nao, nocc=0, nset=1):
     """(bytes, flops) of one f64 call: each input read once, each output
     written once; the contractions' multiply-adds counted as 2 flops. K
     costs 3*nocc flops per element of B: 2 for W_p = (B[p] C)^T and 1 for
-    the symmetric K = sum_p W_p^T W_p (half of the square)."""
+    the symmetric K = sum_p W_p^T W_p (half of the square). The exchange of
+    ``nset`` general densities (``df_k_dm``) costs 4*nao flops per element
+    of B and density: 2 for W = B[p] D[s], 2 for W B[p]^T."""
     b, n2 = naux * nao * nao, nao * nao
+    if name == "df_k_dm":
+        return (b + 2 * nset * n2) * 8, 4.0 * b * nao * nset
     if name == "df_jk_fused":
         return (b + n2 + nao * nocc + 2 * n2) * 8, 4.0 * b + 3.0 * b * nocc
     if name == "df_j":

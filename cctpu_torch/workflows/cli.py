@@ -1,8 +1,8 @@
 """`python -m cctpu_torch.workflows.cli <workflow> ...` — the dispatcher
 over the workflow CLIs. ``energy``, ``opt``, ``opt-freq``, ``ir``,
-``interaction``, ``reaction`` and ``bde`` are ported so far; the other
-names of cctpu's dispatcher are listed and say that they are not ported
-yet."""
+``uv``, ``interaction``, ``reaction`` and ``bde`` are ported so far; the
+other names of cctpu's dispatcher are listed and say that they are not
+ported yet."""
 
 from __future__ import annotations
 
@@ -14,6 +14,8 @@ _WORKFLOWS = {
     "opt": ("cctpu_torch.workflows.optimize_geometry", "geometry opt + freq"),
     "opt-freq": ("cctpu_torch.workflows.opt_freq", "production opt+freq+IR"),
     "ir": ("cctpu_torch.workflows.calculate_ir_spectrum", "IR spectrum"),
+    "uv": ("cctpu_torch.workflows.calculate_uv_spectrum",
+           "TDDFT UV-Vis spectrum"),
     "interaction": ("cctpu_torch.workflows.calculate_interaction",
                     "intermolecular interaction + BSSE"),
     "reaction": ("cctpu_torch.workflows.calculate_reaction_energy",
@@ -22,7 +24,7 @@ _WORKFLOWS = {
             "bond dissociation energies"),
 }
 # cctpu's other workflows, in ROADMAP.md queue 1 order
-_NOT_PORTED = ("uv", "solvent", "nmr", "casscf", "ms-pred")
+_NOT_PORTED = ("solvent", "nmr", "casscf", "ms-pred")
 
 
 def main(argv=None):

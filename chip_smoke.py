@@ -6,9 +6,10 @@
 Run from the root of a checkout. Phases, one printed line or more each:
 
 0. the card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
-1. build the three hand-written CUDA kernels (one nvcc per source, all
+1. build the four hand-written CUDA kernels (one nvcc per source, all
    started together, into build/cctpu_torch/), and count the FP64
-   tensor-core instructions (DMMA) in the SASS of the two W/K libraries;
+   tensor-core instructions (DMMA) in the SASS of the two W/K libraries
+   and of ``df_k_dm``;
 2. the fused DF-J/K kernel against its plain torch version on the card at
    cctpu's three Pallas test shapes and at phenol's shape, in f64 (<= 1e-12
    relative max error) and f32 (<= 1e-5), and in f64 at an odd nao and at a
@@ -61,9 +62,10 @@ Run from the root of a checkout. Phases, one printed line or more each:
    (one and two densities) and DF-K kernels against their plain versions
    at this SCF's factor [K, nao, nao] (f64 <= 1e-12, repeats bitwise) with
    kernel, plain, library and bound times;
-7d. the direct nuclear gradient of 7b's SCF, as 3e (no oracle: a central
-   difference at O y, invariance, bitwise repeat, s/iter), and that of 7c's
-   Cholesky SCF against it (<= 1e-7 Ha/bohr);
+7d. the direct nuclear gradient of 7b's SCF, as 3e (no oracle and, for
+   the script's time limit, no central difference: invariance, bitwise
+   repeat, s/iter), and
+   that of 7c's Cholesky SCF against it (<= 1e-7 Ha/bohr);
 7e. phase 6's three cases in-core against cctpu's CPU-f64 in-core
    gradients (<= 1e-7 Ha/bohr; ``scripts/make_incore_oracles.py``);
 7f. the ``energy`` CLI without ``--density-fit`` (the default route,
@@ -72,10 +74,12 @@ Run from the root of a checkout. Phases, one printed line or more each:
    fewer cycles and agrees (<= 1e-10 Ha);
 8. geometry optimization (``cctpu_torch.geomopt.optimizer.optimize``):
    water DF-B3LYP/6-31G* (grid level 2, conv_tol 1e-12, orbital gradient
-   <= 1e-8) from cctpu's tests/test_geomopt.py start, twice: against
+   <= 1e-8) from cctpu's tests/test_geomopt.py start, once (no repeat,
+   for the script's time limit; 3e-3f, 7d and 9b repeat their gradients
+   bitwise): against
    cctpu's CPU-f64 ``optimize`` on the same inputs (the same steps, every
-   step's energy <= 1e-8 Ha, final coordinates <= 1e-5 bohr), the two
-   runs' final coordinates bitwise equal, the fused kernel every cycle;
+   step's energy <= 1e-8 Ha, final coordinates <= 1e-5 bohr), the fused
+   kernel every cycle;
 8b. the same for the NH2 radical, DF-UB3LYP (DF-J every cycle, DF-K
    twice a cycle);
 8c. phenol DF-B3LYP/6-31G* from bench.py's geometry (grid level 2,
@@ -92,9 +96,11 @@ Run from the root of a checkout. Phases, one printed line or more each:
    the Hessian <= 5e-5 Ha/bohr^2 and real frequencies <= 1 cm^-1 from
    cctpu's analytic (CPHF) Hessian (cctpu's B3LYP and DF analytic
    Hessians did not finish on the CPU: see scripts/make_opt_oracles.py);
-8e. the ``opt`` (``--skip-freq``: its frequencies are 10e's) and
-   ``opt-freq`` CLIs on water on their default routes (in-core): rc 0,
-   the xyz, csv and report files, converged, no imaginary mode.
+8e. the ``opt`` CLI on water (``--skip-freq``: its frequencies are 10e's)
+   and the ``opt-freq`` CLI at its defaults (B3LYP/6-31+G**, in core, FD
+   frequencies) on H2 (the smallest molecule, for the script's time
+   limit): rc 0, the xyz, csv and report files, converged, no
+   imaginary mode, no J/K kernel (in core).
 
 9. ``df_k`` at phenol's B_lr (9a's SCF; wB97X-D, omega 0.2, the
    attenuated metric factored at rcond 1e-10) against its plain version
@@ -116,9 +122,12 @@ Run from the root of a checkout. Phases, one printed line or more each:
    B3LYP5, M06, CAM-B3LYP and ``b3lyp-d`` against their oracles, and
    CAM-B3LYP's gradient against cctpu's; wB97X-D in core (no kernel) and
    with Cholesky J/K against theirs, and both gradients against cctpu's;
-9f. the ``energy`` CLI with ``--method wb97x-d`` on phenol in core and
-   with ``--density-fit`` (against the Python API's SCF at the CLI's own
-   geometry, <= 1e-10 Ha), and the ``opt`` CLI on water with CAM-B3LYP.
+9f. the ``energy`` CLI with ``--method wb97x-d`` on its default route
+   (in core) on water, and on phenol with ``--density-fit`` (against the
+   Python API's SCF at the CLI's own geometry, <= 1e-10 Ha), and the
+   ``opt`` CLI with CAM-B3LYP/6-31G* and its FD frequencies (the
+   long-range gradient at every displacement) on H2: converged, no
+   imaginary mode (water and H2, for the script's time limit).
 
 10. MP2 (6-31G*, SCFs at conv_tol 1e-12): water RMP2 in core and on its
    Cholesky factor, NH2 UMP2 in core, phenol DF-RHF then MP2 on its B;
@@ -130,9 +139,8 @@ Run from the root of a checkout. Phases, one printed line or more each:
 10b. the ``bde`` CLI on ethane (HF/STO-3G, --limit 1), on hydrazine
    (B3LYP/6-31G* at --tier b3lyp: the parent and both NH2 optimized;
    ethane's methyl radical makes the optimizer diverge in both packages)
-   and on phenol
-   (B3LYP/6-31G*, --density-fit, --limit 2: C-O and O-H): every BDE
-   against cctpu's serial path (<= 1e-3 kcal/mol);
+   and on phenol (B3LYP/6-31G*, --density-fit, --limit 2: C-O and O-H):
+   every BDE against cctpu's serial path (<= 1e-3 kcal/mol);
 10c. ``bde --smiles Oc1ccccc1 --limit 2`` at its defaults (M06-2X/
    def2-TZVP, DF by size, nao 253): rc 0, the CSV, both bonds, all three
    kernels launched, s per SCF, peak memory (no oracle: cctpu's CPU cost
@@ -148,11 +156,33 @@ Run from the root of a checkout. Phases, one printed line or more each:
    3.5 A, counterpoise) and with --scan over 3.0-4.0 A: E_int (CP), raw
    and BSSE against cctpu's serial path (<= 1e-4 kcal/mol).
 
+11a. ``uv --smiles C=CC=O`` (acrolein) at its defaults (B3LYP/6-31G*,
+   grid level 3, full TDDFT by the paired Davidson, 6 states; in core) and
+   with ``--density-fit`` (``df_j`` and ``df_k_dm`` in every matvec):
+   excitation energies <= 1e-6 eV and f <= 1e-4 from cctpu's CLI at the
+   same coordinates (not phenol: cctpu's CPU run of it did not finish
+   within an hour); then ``uv --smiles Oc1ccccc1 --density-fit`` with no
+   oracle;
+11b. NH2 DF-UB3LYP TDDFT (``df_k_dm`` on the spin pairs) and water
+   DF-CAM-B3LYP TDDFT (``df_k_dm`` on B and B_lr), 6 states each, through
+   the Python API, and ``uv --smiles O --method cam-b3lyp --tda
+   --density-fit`` (the TDA's Hermitian Davidson), against cctpu's (the
+   same tolerances);
+11c. ``uv --smiles CC(=O)Oc1ccccc1C(=O)O`` at its defaults (aspirin, nao
+   198: DF by size; no oracle, cctpu's CPU cost is out of reach): wall
+   time, matvecs, the TDDFT's seconds in J, K, fxc and host, launches,
+   peak memory;
+11. ``df_k_dm`` against its plain twin (its library call too) at phenol's
+   B, phenol's B_lr (wB97X-D) and aspirin's factor, one density and a
+   Davidson block of 12: f64 <= 1e-12 relative, repeats, a density alone
+   and a split batch bitwise equal; kernel / plain / bound times.
+
 The oracles of 8, 8b and 8d (``OPT_ORACLES``) come from
 ``python scripts/make_opt_oracles.py <case>``, those of 9a-9e
 (``RSH_ORACLES``) from ``python scripts/make_rsh_oracles.py <case>``,
 those of 10-10f (``WORKFLOW_ORACLES``) from
-``python scripts/make_workflow_oracles.py <case>``.
+``python scripts/make_workflow_oracles.py <case>``, those of 11a-11b
+(``UV_ORACLES``) from ``python scripts/make_uv_oracles.py <case>``.
 
 Any failure raises: the script then exits non-zero without its last line.
 The line before the last lists each kernel with its launches on the main
@@ -161,7 +191,10 @@ its launches on the Cholesky phases (7, 7c) and its numbers at 7c's
 factor, its launches in the optimizations (8-8c), the FD Hessian (8d)
 and the range-separated SCFs (9a, 9c-9e), its launches in the
 workflows (10-10f) and its numbers at 10c's def2-TZVP factor, and
-``df_k``'s numbers at B_lr (9); a ``clock`` line after each group of
+``df_k``'s numbers at B_lr (9), and its launches in the TDDFT phases
+(11a-11c); ``df_k_dm``'s row has its launches there, its numbers at
+phenol's B with 12 densities and at every shape of phase 11. A ``clock``
+line after each group of
 phases gives the seconds since the start. The last line is
 ``{"ok": true, "device": {...}}``. Needs no network and imports nothing
 of JAX or of the JAX package.
@@ -173,7 +206,8 @@ import time
 
 import numpy as np
 
-from cctpu_torch.utils.measure import (C16H34_SHAPE, F64_SHAPES, H_ATOM,
+from cctpu_torch.utils.measure import (ASPIRIN, C16H34_SHAPE, F64_SHAPES,
+                                       H_ATOM,
                                        KERNEL_SHAPES, NH2, NH2_START,
                                        PHENOL, PHENOXYL, TOL, WATER,
                                        WATER_START, alkane, alternated_ms,
@@ -198,6 +232,7 @@ PHENOXYL_E_CONV = -306.8112830449618       # DF-UB3LYP, spin 1
 H_ATOM_E_CONV = -0.5002727849165448        # DF-UB3LYP, spin 1 (nbeta 0)
 PHENOL_BLYP_E_CONV = -307.3327949020669    # DF-BLYP (RKS, pure GGA)
 HARTREE2KCAL = 627.5094740631
+HARTREE2EV = 27.211386024367243
 # cctpu's host-f64 water RHF/6-31G energy with Cholesky J/K (tol 1e-9) at
 # conv_tol 1e-12 (scripts/sad_oracles.json, make_oracles.py --cd)
 WATER_CD_631G_E = -75.98397447271235
@@ -577,6 +612,72 @@ WORKFLOW_ORACLES = {
 }
 
 
+# cctpu's CPU-f64 TDDFT results of phases 11a-11b, as
+# ``python scripts/make_uv_oracles.py <case>`` prints them (one process a
+# case): excitation energies (Ha) and oscillator strengths. uv_acrolein
+# (_df): cctpu's uv CLI at its defaults on acrolein's SMILES at the port's
+# embedded coordinates (in core, and with --density-fit; phenol's did not
+# finish within an hour on the CPU); the others cctpu's SCF
+# (6-31G*, DF, grid level 2, conv_tol 1e-12, conv_tol_grad 1e-9) at the
+# geometries of cctpu_torch/utils/measure.py, then its TDDFT with 6
+# states; uv_water_camb3lyp_tda_df: cctpu's uv CLI with --method cam-b3lyp
+# --tda --density-fit on water at the port's embedded coordinates. cctpu
+# on the CPU: uv_acrolein 1,379 s, uv_acrolein_df 1,551 s, nh2_ub3lyp_df
+# 207 s, water_camb3lyp_df 319 s, uv_water_camb3lyp_tda_df 425 s.
+UV_ORACLES = {
+    "uv_acrolein": {
+        "e_scf": -191.7408371273715,
+        "e": [
+            0.029697814326577, 0.10513175266942698, 0.14094741102175296,
+            0.17747802719479805, 0.23248367300910477, 0.26097909048023127],
+        "f": [
+            0.0010518958488269108, 0.005712687110152588, 0.0535633477766729,
+            0.02451282782601522, 0.002961445679305789, 0.0336488098587678],
+        "converged": True,
+    },
+    "uv_acrolein_df": {
+        "e_scf": -191.74083783166407,
+        "e": [
+            0.029702100656638027, 0.10513329083297157, 0.14094788662546498,
+            0.17747777934608328, 0.23248463688912266, 0.2609798216365691],
+        "f": [
+            0.0010521910395558261, 0.005712878139016657, 0.053563023211482576,
+            0.02451339489896471, 0.00296141102446487, 0.03364811511763131],
+        "converged": True,
+    },
+    "nh2_ub3lyp_df": {
+        "e_scf": -55.87099329938427,
+        "e": [
+            0.0878007601624062, 0.25443744527716694, 0.30398344524527315,
+            0.3162104282544573, 0.34316802786717027, 0.3580994300955667],
+        "f": [
+            0.002971942685589923, 2.876295721201214e-30, 0.0032108007835401227,
+            0.008997554270426278, 0.09484296805268384, 0.0030275034003339075],
+        "converged": True,
+    },
+    "water_camb3lyp_df": {
+        "e_scf": -76.41520246399878,
+        "e": [
+            0.3003227190220948, 0.3750476354014928, 0.3927629075491846,
+            0.4745924139927436, 0.5457413080785564, 0.666404653445512],
+        "f": [
+            0.01587153161975355, 1.2727782437168717e-28, 0.09029033306935313,
+            0.07011556956874201, 0.3859295928058789, 0.20118950421781331],
+        "converged": True,
+    },
+    "uv_water_camb3lyp_tda_df": {
+        "e_scf": -76.41428003484049,
+        "e": [
+            0.3029494527114689, 0.37834277376767, 0.3860975113597084,
+            0.4695581174052868, 0.5597214423887629, 0.6855454973589346],
+        "f": [
+            0.01551174666223788, 3.1920776368629337e-12, 0.08911742295061172,
+            0.08922114163332372, 0.42666365419293495, 0.20605647182626935],
+        "converged": True,
+    },
+}
+
+
 def water_key(xc: str) -> str:
     """The ``RSH_ORACLES`` key of water's DF energy with ``xc``."""
     return f"water_{xc.replace(',', '_').replace('-', '')}_e"
@@ -607,8 +708,9 @@ def wk_report(module, lib: str) -> dict:
 
 
 def ops():
-    from cctpu_torch.ops import df_j, df_jk, df_k
-    return {"df_jk_fused": df_jk, "df_j": df_j, "df_k": df_k}
+    from cctpu_torch.ops import df_j, df_jk, df_k, df_k_dm
+    return {"df_jk_fused": df_jk, "df_j": df_j, "df_k": df_k,
+            "df_k_dm": df_k_dm}
 
 
 def reset_counts():
@@ -618,6 +720,12 @@ def reset_counts():
 
 def counts() -> dict:
     return {name: m.LAUNCHES for name, m in ops().items()}
+
+
+def scf_kernels_ran(n) -> bool:
+    """Every kernel an SCF runs (all but the response's ``df_k_dm``) was
+    launched in the launch counts ``n``."""
+    return all(v for k, v in n.items() if k != "df_k_dm")
 
 
 def phase_kernel(df_jk, dev):
@@ -1222,47 +1330,43 @@ def launches_per_cycle(tag, n, cycles, open_shell):
     want = ({"df_jk_fused": 0, "df_j": cycles, "df_k": 2 * cycles}
             if open_shell else
             {"df_jk_fused": cycles, "df_j": 0, "df_k": 0})
+    want["df_k_dm"] = 0
     check(n == want, f"{tag}: launches {n}, expected {want}")
 
 
 def phase_opt(tag, cls, atoms, spin, dev):
-    """8, 8b. ``optimize`` twice from ``atoms``, held against cctpu's
+    """8, 8b. ``optimize`` from ``atoms`` once, held against cctpu's
     CPU-f64 optimization (``OPT_ORACLES[tag]``): the same steps, every
-    step's energy <= 1e-8 Ha, final coordinates <= 1e-5 bohr; the two runs
-    bitwise equal; the DF kernels every cycle. Returns the first run's
-    result and launches."""
+    step's energy <= 1e-8 Ha, final coordinates <= 1e-5 bohr; the DF
+    kernels every cycle. One run, no repeat, for the script's time limit.
+    Returns the result and launches."""
     import torch
     from cctpu_torch.core.molecule import Molecule
     from cctpu_torch.geomopt.optimizer import optimize
     from cctpu_torch.utils.profiling import PhaseTimer
     orc = OPT_ORACLES[tag]
     mol = Molecule.from_atoms(atoms, spin=spin, basis="6-31g*")
-    runs = []
-    for _ in range(2):
-        timer = PhaseTimer(dev)
-        reset_counts()
-        t0 = time.time()
-        res = optimize(opt_factory(cls, dev), mol, timer=timer)
-        torch.cuda.synchronize(dev)
-        runs.append((res, counts(), time.time() - t0, timer.phases))
-    (res, n, wall, phases), (res2, n2, _, _) = runs
+    timer = PhaseTimer(dev)
+    reset_counts()
+    t0 = time.time()
+    res = optimize(opt_factory(cls, dev), mol, timer=timer)
+    torch.cuda.synchronize(dev)
+    n, wall, phases = counts(), time.time() - t0, timer.phases
     k = min(res.nsteps, orc["nsteps"])
     de = float(np.abs(np.subtract(res.energies[:k],
                                   orc["energies"][:k])).max())
     dx = float(np.abs(res.mol.coords - np.asarray(orc["coords"])).max())
-    bitwise = bool(np.array_equal(res.mol.coords, res2.mol.coords))
     emit({"phase": f"opt_{tag}", "converged": res.converged,
           "steps": res.nsteps, "steps_cctpu": orc["nsteps"],
           "cycles": res.cycles, "energies": res.energies,
           "max_abs_dE_vs_cctpu": de, "max_abs_dx_vs_cctpu_bohr": dx,
-          "bitwise_repeat": bitwise, "wall_s": wall, "phases_s": phases,
+          "wall_s": wall, "phases_s": phases,
           "launches": n})
     check(res.converged and res.nsteps == orc["nsteps"],
           f"{tag}: {res.nsteps} steps (converged {res.converged}), cctpu "
           f"{orc['nsteps']}")
     check(de <= 1e-8, f"{tag}: step energies {de:.2e} Ha from cctpu's")
     check(dx <= 1e-5, f"{tag}: final coordinates {dx:.2e} bohr off")
-    check(bitwise and n == n2, f"{tag}: the two runs differ")
     launches_per_cycle(tag, n, sum(res.cycles), spin != 0)
     return res, n
 
@@ -1416,20 +1520,23 @@ def phase_hessian(dev):
     return n_all
 
 
-def phase_cli_opt(runs=(("opt", ("_optimized.xyz",), ("--skip-freq",)),
-                        ("opt-freq", ("_optimized.xyz", "_ir.csv"), ())),
+def phase_cli_opt(runs=(("opt", "O", ("_optimized.xyz",), ("--skip-freq",)),
+                        ("opt-freq", "[H][H]", ("_optimized.xyz", "_ir.csv"),
+                         ())),
                   extra=(), tag="cli"):
-    """8e. The ``opt`` and ``opt-freq`` CLIs on water, default routes (in
-    core: no J/K kernel), on the card; ``extra`` arguments for all. The
-    ``opt`` run skips its frequencies: they are the same optimization and
-    FD Hessian as 10e's ``ir`` CLI (B3LYP/6-31G*, in core), which holds
-    them against cctpu's."""
+    """8e. The ``opt`` CLI on water and the ``opt-freq`` CLI on H2, default
+    routes (in core: no J/K kernel), on the card; ``extra`` arguments for
+    all. The ``opt`` run skips its frequencies: they are the same
+    optimization and FD Hessian as 10e's ``ir`` CLI (B3LYP/6-31G*, in
+    core), which holds them against cctpu's. ``opt-freq`` runs at its
+    defaults (B3LYP/6-31+G**, FD frequencies) on H2, the smallest
+    molecule, for the script's time limit."""
     from cctpu_torch.workflows import cli
-    for name, files, args in runs:
+    for name, smiles, files, args in runs:
         reset_counts()
         with tempfile.TemporaryDirectory() as tmp:
             t0 = time.time()
-            rc = cli.main([name, "--smiles", "O", *extra, *args,
+            rc = cli.main([name, "--smiles", smiles, *extra, *args,
                            "--output-dir", tmp])
             wall = time.time() - t0
             names = os.listdir(tmp)
@@ -1463,6 +1570,7 @@ def rsh_launches(tag, n, cycles, open_shell):
     want = ({"df_jk_fused": 0, "df_j": cycles, "df_k": 4 * cycles}
             if open_shell else
             {"df_jk_fused": cycles, "df_j": 0, "df_k": cycles})
+    want["df_k_dm"] = 0
     check(n == want, f"{tag}: launches {n}, expected {want}")
 
 
@@ -1586,16 +1694,17 @@ def phase_rsh_water(dev):
 
 
 def phase_rsh_cli():
-    """9f. The ``energy`` CLI with ``--method wb97x-d`` on phenol, on the
-    default (in-core) route and with ``--density-fit``; the second against
-    the Python API's SCF at the CLI's own geometry (<= 1e-10 Ha). The
-    ``opt`` CLI on water with CAM-B3LYP/6-31G*: converged, no imaginary
-    mode."""
+    """9f. The ``energy`` CLI with ``--method wb97x-d`` on its default
+    route (in core: no kernel) on water, and on phenol with
+    ``--density-fit``, against the Python API's SCF at the CLI's own
+    geometry (<= 1e-10 Ha). The ``opt`` CLI with CAM-B3LYP/6-31G* and its
+    FD frequencies (the long-range gradient at each displacement) on H2:
+    converged, no imaginary mode. Water and H2, for the script's time
+    limit."""
     from cctpu_torch.io.embed3d import smiles_to_molecule
     from cctpu_torch.workflows import calculate_energy
     from cctpu_torch.workflows.common import make_scf
-    phase_cli("Oc1ccccc1", [], "cli_energy_wb97xd_incore", None,
-              method="wb97x-d")
+    phase_cli("O", [], "cli_energy_wb97xd_incore", None, method="wb97x-d")
     reset_counts()
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.time()
@@ -1615,7 +1724,7 @@ def phase_rsh_cli():
     check(mf.converged and de <= 1e-10, f"wB97X-D CLI vs API |dE| {de:.2e}")
     check(n["df_jk_fused"] > 0 and n["df_k"] == n["df_jk_fused"],
           f"wB97X-D DF CLI launches {n}")
-    phase_cli_opt(runs=(("opt", ("_optimized.xyz",), ()),),
+    phase_cli_opt(runs=(("opt", "[H][H]", ("_optimized.xyz",), ()),),
                   extra=("--method", "cam-b3lyp", "--basis", "6-31g*"),
                   tag="cli_cam_b3lyp")
 
@@ -1783,7 +1892,8 @@ def phase_bde():
         check("tier=b3lyp" in text or "batched sweep not ported" in text,
               f"{key}: the serial path was not logged")
         n_all = {k: n_all.get(k, 0) + v for k, v in n.items()}
-    check(all(n_all.values()), f"10b's DF phenol never ran a kernel: {n_all}")
+    check(scf_kernels_ran(n_all),
+          f"10b's DF phenol never ran a kernel: {n_all}")
     return n_all
 
 
@@ -1813,7 +1923,7 @@ def phase_bde_default(dev):
     check(rc == 0 and len(rows) == 2 and len(per_scf) == 5
           and all(p["converged"] for p in per_scf),
           f"default bde on phenol: rc {rc}, rows {rows}, SCFs {per_scf}")
-    check(parent.density_fit and all(n.values()),
+    check(parent.density_fit and scf_kernels_ran(n),
           f"default bde on phenol: launches {n}")
     kern = scf_kernels(parent, ("df_jk_fused", "df_j", "df_j_nset1",
                                 "df_k"))
@@ -1872,7 +1982,7 @@ def phase_reaction():
     check(not any(n.values()), f"in-core reaction launched {n}")
     n_df = run_reaction("OO + 2[H] -> 2O", ["--density-fit", "--skip-freq"],
                         "reaction_h_df")
-    check(all(n_df.values()), f"DF reaction launches {n_df}")
+    check(scf_kernels_ran(n_df), f"DF reaction launches {n_df}")
     return n_df
 
 
@@ -1954,6 +2064,199 @@ def phase_interaction():
               f"in-core interaction launched {counts()}")
 
 
+def uv_match(td, ref) -> tuple:
+    """(max |dE| in eV, max |df|) of a TDDFT result against cctpu's; f
+    summed over each set of states degenerate within 1e-6 Ha (their
+    amplitudes are not unique)."""
+    e, f = np.asarray(td.e), td.oscillator_strength()
+    de = float(np.abs(e - ref["e"]).max()) * HARTREE2EV
+    cuts = np.flatnonzero(np.diff(ref["e"]) > 1e-6) + 1
+    df = max(abs(f[i].sum() - np.asarray(ref["f"])[i].sum())
+             for i in np.split(np.arange(len(e)), cuts))
+    return de, float(df)
+
+
+def td_seconds(td) -> dict:
+    """The TDDFT's seconds by part (its PhaseTimer) and its matvecs."""
+    sec = td.timer.phases
+    return {"tddft_s": td.wall_s, "matvecs": td.n_matvec,
+            "J_s": sec.get("J", 0.0),
+            "K_s": sec.get("K", 0.0) + sec.get("K_lr", 0.0),
+            "fxc_s": sec.get("fxc", 0.0),
+            "matvec_other_s": sec.get("matvec", 0.0) - sum(
+                sec.get(k, 0.0) for k in ("J", "K", "K_lr", "fxc")),
+            "host_s": td.wall_s - sec.get("matvec", 0.0)}
+
+
+def run_uv(argv):
+    """The ``uv`` CLI through its main on the card, the launch counts reset
+    just before and read just after; (td, wall s, report, launches, peak
+    device GB)."""
+    import torch
+    from cctpu_torch.workflows import calculate_uv_spectrum
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        td = calculate_uv_spectrum.main([*argv, "--output-dir", tmp])
+        wall = time.time() - t0
+        text = _short_report(tmp)
+    return (td, wall, text, counts(),
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def phase_uv_acrolein_phenol():
+    """11a. ``uv --smiles C=CC=O`` at its defaults (B3LYP/6-31G*, grid
+    level 3, full TDDFT by the paired Davidson: 735 single excitations, 6
+    states; in core, no J/K kernel) and with ``--density-fit`` (``df_j``
+    and ``df_k_dm`` in every matvec) against cctpu's CLI at the same
+    coordinates: excitation energies <= 1e-6 eV, f <= 1e-4. Acrolein, not
+    phenol: cctpu's CPU run of phenol's ``uv`` did not finish within an
+    hour. Then ``uv --smiles Oc1ccccc1 --density-fit`` (nao 110, 2,125
+    single excitations; no oracle): its seconds, states and launches.
+    Returns phenol's TDDFT and the launches."""
+    n_all = {}
+    for key, smiles, extra in (
+            ("uv_acrolein", "C=CC=O", []),
+            ("uv_acrolein_df", "C=CC=O", ["--density-fit"]),
+            ("uv_phenol_df", "Oc1ccccc1", ["--density-fit"])):
+        td, wall, text, n, peak = run_uv(["--smiles", smiles, *extra])
+        n_all = {k: n_all.get(k, 0) + v for k, v in n.items()}
+        ref = UV_ORACLES.get(key)
+        cmp = {}
+        if ref is not None:
+            de, df = uv_match(td, ref)
+            cmp = {"max_abs_dE_eV_vs_cctpu": de, "max_abs_df_vs_cctpu": df,
+                   "abs_dEscf_vs_cctpu": abs(td.mf.e_tot - ref["e_scf"])}
+        emit({"phase": f"cli_{key}", "wall_s": wall, **td_seconds(td),
+              "nao": td.mf.mol.nao, "nov": len(td.ediff),
+              "e_eV": (np.asarray(td.e) * HARTREE2EV).tolist(),
+              "f": td.oscillator_strength().tolist(), **cmp,
+              "launches": n, "peak_mem_GB": peak})
+        check(td.converged and "strongest absorption" in text,
+              f"{key}: not converged")
+        if ref is not None:
+            check(cmp["max_abs_dE_eV_vs_cctpu"] <= 1e-6
+                  and cmp["max_abs_df_vs_cctpu"] <= 1e-4,
+                  f"{key}: {cmp} from cctpu's")
+        if extra:
+            check(n["df_k_dm"] > 0 and n["df_j"] > 0,
+                  f"{key} never reached df_k_dm/df_j: {n}")
+        else:
+            check(not any(n.values()), f"in-core {key} launched {n}")
+    return td, n_all
+
+
+def phase_uv_api(dev):
+    """11b. NH2 DF-UB3LYP TDDFT (``df_k_dm`` on the spin pairs) and water
+    DF-CAM-B3LYP TDDFT (``df_k_dm`` on B and B_lr), 6 states each (dense
+    Casida), through the Python API, SCFs at conv_tol 1e-12 and an orbital
+    gradient <= 1e-9 (6-31G*, grid level 2); then the ``uv`` CLI's TDA
+    (the Hermitian Davidson) on water, ``--method cam-b3lyp --tda
+    --density-fit``; all against cctpu's (<= 1e-6 eV, f <= 1e-4). Not
+    NH2's TDA: with a GGA the TDA operator of cctpu's formulation is not
+    symmetric, and NH2's Davidson moves by 1e-4 eV with the SCF's last
+    digits (``scripts/tda_asymmetry.py``; ROADMAP.md queue 3); water's
+    converges to the same states from any of them."""
+    from cctpu_torch.dft.rks import RKS, UKS
+    from cctpu_torch.response.tddft import TDDFT
+    from cctpu_torch.utils.profiling import PhaseTimer
+    n_all = {}
+    for key, cls, atoms, spin, xc in (
+            ("nh2_ub3lyp_df", UKS, NH2, 1, "b3lyp"),
+            ("water_camb3lyp_df", RKS, WATER, 0, "cam-b3lyp")):
+        mf, e, info = run_scf(cls, atoms, dev, spin=spin, xc=xc,
+                              conv_tol=1e-12, conv_tol_grad=1e-9,
+                              max_cycle=100)
+        reset_counts()
+        td = TDDFT(mf, nstates=6, timer=PhaseTimer(dev))
+        td.kernel()
+        n = counts()
+        n_all = {k: n_all.get(k, 0) + v for k, v in n.items()}
+        ref = UV_ORACLES[key]
+        de, df = uv_match(td, ref)
+        emit({"phase": key, **td_seconds(td), "nov": len(td.ediff),
+              "e_eV": (np.asarray(td.e) * HARTREE2EV).tolist(),
+              "max_abs_dE_eV_vs_cctpu": de, "max_abs_df_vs_cctpu": df,
+              "abs_dEscf_vs_cctpu": abs(e - ref["e_scf"]),
+              "launches_tddft": n, "scf": info})
+        check(mf.converged and td.converged and de <= 1e-6 and df <= 1e-4,
+              f"{key}: {de:.2e} eV, f {df:.2e} from cctpu's")
+        check(n["df_k_dm"] > 0, f"{key} never reached df_k_dm: {n}")
+        del mf, td
+    key = "uv_water_camb3lyp_tda_df"
+    td, wall, text, n, peak = run_uv(["--smiles", "O", "--method",
+                                      "cam-b3lyp", "--tda", "--density-fit"])
+    n_all = {k: n_all[k] + v for k, v in n.items()}
+    ref = UV_ORACLES[key]
+    de, df = uv_match(td, ref)
+    emit({"phase": f"cli_{key}", "wall_s": wall, **td_seconds(td),
+          "nov": len(td.ediff),
+          "e_eV": (np.asarray(td.e) * HARTREE2EV).tolist(),
+          "max_abs_dE_eV_vs_cctpu": de, "max_abs_df_vs_cctpu": df,
+          "abs_dEscf_vs_cctpu": abs(td.mf.e_tot - ref["e_scf"]),
+          "launches": n, "peak_mem_GB": peak})
+    check(td.tda and td.converged and "strongest absorption" in text
+          and de <= 1e-6 and df <= 1e-4,
+          f"{key}: converged {td.converged}, {de:.2e} eV, f {df:.2e} from "
+          "cctpu's")
+    check(n["df_k_dm"] > 0 and n["df_j"] > 0,
+          f"{key} never reached df_k_dm/df_j: {n}")
+    return n_all
+
+
+def phase_uv_aspirin():
+    """11c. ``uv --smiles CC(=O)Oc1ccccc1C(=O)O`` at its defaults (B3LYP/
+    6-31G*, grid level 3, nao 198: DF by size, full TDDFT, 6 states; no
+    oracle, cctpu's CPU cost is out of reach): wall time, matvecs, the
+    TDDFT's seconds split into J, K, fxc and host, the launches, peak
+    device memory; six converged, finite, ascending states with f >= 0.
+    Returns the TDDFT and the launches."""
+    td, wall, text, n, peak = run_uv(["--smiles", ASPIRIN])
+    e, f = np.asarray(td.e), td.oscillator_strength()
+    emit({"phase": "cli_uv_aspirin", "wall_s": wall, **td_seconds(td),
+          "nao": td.mf.mol.nao, "naux": int(td.mf._jk.B.shape[0]),
+          "nov": len(td.ediff), "scf_cycles": td.mf.n_cycles,
+          "e_eV": (e * HARTREE2EV).tolist(), "f": f.tolist(),
+          "launches": n, "peak_mem_GB": peak})
+    check(td.converged and len(e) == 6 and np.all(np.isfinite(e))
+          and np.all(np.diff(e) >= 0) and e[0] > 0 and np.all(f >= 0)
+          and td.mf.density_fit is True, "aspirin uv: states not right")
+    check(n["df_k_dm"] > 0 and n["df_j"] > 0,
+          f"aspirin uv never reached df_k_dm/df_j: {n}")
+    return td, n
+
+
+def phase_k_dm(factors, batch=12):
+    """11. ``df_k_dm`` against its plain twin (the einsum, which is also
+    its library call) at the given factors B, with ``batch`` random
+    non-symmetric densities and with one, through
+    ``ops/bench_k_dm.measure``: f64 <= 1e-12 relative, repeats bitwise
+    equal, a density alone and the batch split in two calls bitwise equal
+    to the whole batch's; kernel / plain / bound times. Returns the
+    numbers by factor and batch."""
+    import torch
+    from cctpu_torch.ops.bench_k_dm import measure
+    out = {}
+    for name, B in factors.items():
+        naux, nao = int(B.shape[0]), int(B.shape[1])
+        g = torch.Generator(device=B.device)
+        g.manual_seed(nao)
+        D = torch.randn((batch, nao, nao), generator=g, dtype=B.dtype,
+                        device=B.device)
+        for nset in (1, batch):
+            row = measure(B, D[:nset])
+            out[f"{name}_nset{nset}"] = row
+            emit({"phase": "df_k_dm", "factor": name, "shape": [naux, nao],
+                  "nset": nset, **row})
+            check(row["rel_err"] <= TOL["float64"] and row["bitwise_repeat"]
+                  and row["batch_invariant"],
+                  f"df_k_dm at {name} nset {nset}: {row}")
+            torch.cuda.empty_cache()
+    return out
+
+
 def mark(t0, after):
     emit({"phase": "clock", "after": after, "s": time.time() - t0})
 
@@ -1979,13 +2282,13 @@ def main():
     ptxas = {name: [ln.strip() for ln in log.splitlines()
                     if "registers" in ln or "spill" in ln]
              for name, log in build.BUILD_LOGS.items()}
-    # the W and K products of the f64 W/K kernels issue the FP64 tensor-core
-    # instruction (DMMA in the SASS of both libraries)
+    # the W and K products of the f64 W/K kernels and of df_k_dm issue the
+    # FP64 tensor-core instruction (DMMA in the SASS of the libraries)
     dmma = {name: build.sass_count(name, "DMMA")
-            for name in ("df_jk_fused", "df_k")}
+            for name in ("df_jk_fused", "df_k", "df_k_dm")}
     emit({"phase": "build", "seconds": time.time() - t0, "ptxas": ptxas,
           "sass_dmma": dmma})
-    check(min(dmma.values()) > 0, f"no DMMA in a W/K library: {dmma}")
+    check(min(dmma.values()) > 0, f"no DMMA in a library: {dmma}")
 
     fused = phase_kernel(df_jk, dev)
     phase_kernel_j_k(dev)
@@ -2026,10 +2329,11 @@ def main():
     mf_cd, n_phenol_cd, cd_kernels = phase_cholesky_phenol(dev, mf_in.e_tot)
     n_cd = {k: n_cd[k] + n_phenol_cd[k] for k in n_cd}
     mark(t_start, "7c")
-    # one central difference (O y): each FD point rebuilds the in-core
-    # tensor; the DF gradient of 3e keeps three
+    # no central difference (each FD point rebuilds the in-core tensor;
+    # the script's time limit): held against the Cholesky gradient and,
+    # on water and NH2, against cctpu's (7e)
     res = phase_gradient("gradient_incore_phenol_b3lyp", mf_in, info_in,
-                         fd_comps[:1], None)
+                         [], None)
     del mf_in
     torch.cuda.empty_cache()
     phase_cd_gradient(mf_cd, res["gradient"])
@@ -2057,7 +2361,7 @@ def main():
     mark(t_start, "8d")
     phase_cli_opt()
     mark(t_start, "8e")
-    check(all(n_opt.values()), f"a kernel never ran in 8-8c: {n_opt}")
+    check(scf_kernels_ran(n_opt), f"a kernel never ran in 8-8c: {n_opt}")
 
     mf, info, k_lr = phase_rsh_phenol(dev, info_phenol)
     n_rsh = dict(info["launches"])
@@ -2073,7 +2377,7 @@ def main():
     mark(t_start, "9e")
     phase_rsh_cli()
     mark(t_start, "9f")
-    check(all(n_rsh.values()), f"a kernel never ran in 9-9e: {n_rsh}")
+    check(scf_kernels_ran(n_rsh), f"a kernel never ran in 9-9e: {n_rsh}")
 
     n_wf = phase_mp2(dev)
     mark(t_start, "10")
@@ -2091,7 +2395,26 @@ def main():
     mark(t_start, "10e")
     phase_interaction()
     mark(t_start, "10f")
-    check(all(n_wf.values()), f"a kernel never ran in 10-10f: {n_wf}")
+    check(scf_kernels_ran(n_wf), f"a kernel never ran in 10-10f: {n_wf}")
+
+    td_df, n_uv = phase_uv_acrolein_phenol()
+    mark(t_start, "11a")
+    n = phase_uv_api(dev)
+    n_uv = {k: n_uv[k] + n[k] for k in n_uv}
+    mark(t_start, "11b")
+    td_asp, n = phase_uv_aspirin()
+    n_uv = {k: n_uv[k] + n[k] for k in n_uv}
+    mark(t_start, "11c")
+    check(all(n_uv[k] for k in ("df_jk_fused", "df_j", "df_k_dm")),
+          f"a kernel of the uv path never ran in 11a-11c: {n_uv}")
+    from cctpu_torch.dft.xc import get_functional
+    omega = get_functional("wb97x-d").rsh[0]
+    k_dm = phase_k_dm({"phenol": td_df.mf._jk.B,
+                       "phenol_b_lr": td_df.mf._jk.prepare_lr(omega)[0],
+                       "aspirin": td_asp.mf._jk.B})
+    del td_df, td_asp
+    torch.cuda.empty_cache()
+    mark(t_start, "11")
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
@@ -2103,6 +2426,7 @@ def main():
              "cctpu/ops/df_jk_pallas.py:46,53", jk["df_j"]),
             ("df_k", "cctpu_torch/ops/csrc/df_k.cu",
              "cctpu/ops/df_jk_pallas.py:66", jk["df_k"])]
+    main_k_dm = k_dm["phenol_nset12"]
     emit(card)
     emit({"kernels": [{"name": name, "route": "cuda", "source": src,
                        "replaces": rep, **{k: d[k] for k in keys},
@@ -2111,13 +2435,22 @@ def main():
                        "launches_hessian": n_hess[name],
                        "launches_rsh": n_rsh[name],
                        "launches_workflows": n_wf[name],
+                       "launches_uv": n_uv[name],
                        "cholesky_shape": {k: cd_kernels[name][k]
                                           for k in cd_keys},
                        "def2tzvp_shape": {k: tzvp[name][k]
                                           for k in cd_keys},
                        **({"b_lr_shape": {k: k_lr[k] for k in cd_keys}}
                           if name == "df_k" else {})}
-                      for name, src, rep, d in rows]})
+                      for name, src, rep, d in rows]
+             + [{"name": "df_k_dm", "route": "cuda",
+                 "source": "cctpu_torch/ops/csrc/df_k_dm.cu",
+                 "replaces": "cctpu/ints/df.py:1359-1360 (an XLA einsum: "
+                             "no TPU kernel)",
+                 "launches": n_uv["df_k_dm"],
+                 **{k: main_k_dm[k] for k in keys if k != "launches"},
+                 "shapes": {name: {k: row[k] for k in cd_keys}
+                            for name, row in k_dm.items()}}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,8 +1,9 @@
 """Tests of the port that need the card: the CUDA kernels (fused J+K, J,
-K) against their plain versions, the CUDA dispatch (launch or raise), and
-the in-core and Cholesky SCFs and the direct gradient on the card against
-the CPU. They skip without a CUDA device. This file imports neither JAX nor cctpu,
-so it also runs on a machine without them:
+K, K of general densities) against their plain versions, the CUDA
+dispatch (launch or raise), and the in-core and Cholesky SCFs and the
+direct gradient on the card against the CPU. They skip without a CUDA
+device. This file imports neither JAX nor cctpu, so it also runs on a
+machine without them:
 
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
 """
@@ -16,7 +17,7 @@ import torch
 
 from cctpu_torch.core.molecule import Molecule
 from cctpu_torch.ints.df import DFJK
-from cctpu_torch.ops import df_j, df_jk, df_k
+from cctpu_torch.ops import df_j, df_jk, df_k, df_k_dm
 
 pytestmark = pytest.mark.gpu
 
@@ -133,6 +134,23 @@ def _check_j_k(dev, shape, dtype, tol):
     assert torch.count_nonzero(df_k.df_k_fast(B, zero)) == 0
 
 
+@pytest.mark.parametrize("naux,nao,nset", [(37, 16, 1), (61, 15, 3),
+                                            (40, 130, 2), (13, 257, 5)])
+def test_df_k_dm_matches_plain(naux, nao, nset, dev):
+    """K of non-symmetric densities, with a B whose rows are not symmetric,
+    against the einsum (f64 <= 1e-12 relative); repeats and a density taken
+    alone bitwise equal to the batch's; an f32 call raises."""
+    rng = np.random.default_rng(naux + nao)
+    B = torch.as_tensor(rng.standard_normal((naux, nao, nao)), device=dev)
+    D = torch.as_tensor(rng.standard_normal((nset, nao, nao)), device=dev)
+    K = df_k_dm.df_k_dm(B, D)
+    assert _rel(K, df_k_dm.df_k_dm_reference(B, D)) < 1e-12
+    assert torch.equal(K, df_k_dm.df_k_dm(B, D))
+    assert torch.equal(K[-1], df_k_dm.df_k_dm(B, D[-1]))
+    with pytest.raises(ValueError, match="float64"):
+        df_k_dm.df_k_dm(B.float(), D.float())
+
+
 def test_kernel_rejects_what_it_does_not_take(dev):
     B, D, C = _inputs(8, 6, 2, 0, torch.float64, dev)
     with pytest.raises(ValueError, match="contiguous"):
@@ -149,8 +167,7 @@ def test_kernel_rejects_what_it_does_not_take(dev):
 
 def test_dfjk_on_card_launches_or_raises(dev):
     """Every branch of the DF J/K dispatch launches its kernel on the card,
-    except the dm-contracted K (cocc=None), which raises before any
-    launch."""
+    the dm-contracted K (cocc=None) ``df_k_dm`` beside ``df_j``."""
     mol = Molecule.from_atoms(WATER, basis="sto-3g")
     jk = DFJK(mol, torch.as_tensor(mol.coords, dtype=torch.float64,
                                    device=dev))
@@ -160,30 +177,32 @@ def test_dfjk_on_card_launches_or_raises(dev):
     D, Db = C @ C.T, Cb @ Cb.T
 
     def counts():
-        return df_jk.LAUNCHES, df_j.LAUNCHES, df_k.LAUNCHES
+        return df_jk.LAUNCHES, df_j.LAUNCHES, df_k.LAUNCHES, df_k_dm.LAUNCHES
 
     before = counts()
     J, K = jk(D, cocc=C)
-    assert counts() == (before[0] + 1, before[1], before[2])
+    assert counts() == (before[0] + 1, *before[1:])
     Jr, Kr = df_jk.df_jk_reference(jk.B, D, C)
     assert _rel(J, Jr) < 1e-12 and _rel(K, Kr) < 1e-12
 
     before = counts()
     J1, K1 = jk(D, with_k=False, cocc=C)            # pure functional
-    assert counts() == (before[0], before[1] + 1, before[2])
+    assert counts() == (before[0], before[1] + 1, *before[2:])
     assert K1 is None and _rel(J1, Jr) < 1e-12
 
     before = counts()
     J2, K2 = jk(torch.stack([D, Db]), cocc=(C, Cb))   # UHF / UKS
-    assert counts() == (before[0], before[1] + 1, before[2] + 2)
+    assert counts() == (before[0], before[1] + 1, before[2] + 2, before[3])
     Jbr, Kbr = df_jk.df_jk_reference(jk.B, Db, Cb)
     assert _rel(J2[0], Jr) < 1e-12 and _rel(K2[0], Kr) < 1e-12
     assert _rel(J2[1], Jbr) < 1e-12 and _rel(K2[1], Kbr) < 1e-12
 
     before = counts()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        jk(D, cocc=None)
-    assert counts() == before
+    P = torch.stack([D @ Db, Db])                    # not symmetric
+    J3, K3 = jk(P, cocc=None)
+    assert counts() == (before[0], before[1] + 1, before[2], before[3] + 1)
+    assert _rel(K3, df_k_dm.df_k_dm_reference(jk.B, P)) < 1e-12
+    assert _rel(J3, df_j.df_j_reference(jk.B, P)) < 1e-12
 
 
 def test_incore_and_cholesky_scf_on_card(dev):
