@@ -14,9 +14,11 @@ Port of ``cctpu/dft/rks.py``:
  - meta-GGAs get the kinetic-energy densities from the AO gradients the
    cache already holds;
  - UKS keeps both spin densities stacked as [2, nao, nao];
- - the XC kernel's action on TDDFT transition densities (``fxc_action``)
-   is a Hessian-vector product of E_xc, chunk by chunk (cctpu's
-   ``jax.jvp`` of its AD vxc).
+ - the XC kernel's action on TDDFT transition densities and CPHF
+   response densities (``fxc_operator``) is the Hessian of E_xc applied
+   to them (cctpu's ``jax.jvp`` of its AD vxc), by the chain rule through
+   the density variables: the functional's second derivatives per grid
+   point once, then linear algebra per batch.
 """
 
 from __future__ import annotations
@@ -30,8 +32,8 @@ from cctpu_torch.scf.hf import RHF, UHF
 
 # padding points sit this far away (bohr): every AO is exactly 0 there
 _PAD_AT = 1e6
-# elements of one [directions, nao, chunk] tensor in fxc_action's batched
-# Hessian-vector products (2**27: 1 GiB in f64)
+# elements of one [directions, nao, chunk] tensor of fxc_operator's apply
+# (2**27: 1 GiB in f64)
 _FXC_ELEMS = 1 << 27
 
 
@@ -150,6 +152,15 @@ class _XCMixin:
         e = func.exc(r[0], r[1], saa, sab, sbb, ta, tb)
         return torch.sum(w * e)
 
+    def exc_chunk_at(self, dm, coords, k: int):
+        """E_xc of grid chunk ``k`` with the grid and the AO values rebuilt
+        at ``coords``, with its graph to ``dm`` and ``coords`` (second
+        derivatives: the analytic Hessian). Summed over the chunks it is
+        cctpu's ``exc_of_coords``."""
+        pts, w = self._grid_chunk(coords, k)
+        ao = eval_ao(self.mol.basis_set, coords, pts, deriv=1)
+        return self._chunk_exc_from_ao(self.func, dm, ao, w)
+
     def exc_of_coords(self, coords, dm):
         """(E_xc[dm], dE_xc/dR [natm, 3]) with the grid rebuilt at
         ``coords``: the derivatives of the grid points and of the Becke
@@ -158,16 +169,13 @@ class _XCMixin:
         points, weights and AO values built from the leaf ``coords``, so
         memory stays at one chunk; the AO cache has no graph to the
         coordinates and is not used."""
-        basis = self.mol.basis_set
         dm = dm.detach()
         leaf = coords.detach().requires_grad_(True)
         exc = torch.zeros((), dtype=dm.dtype, device=dm.device)
         grad = torch.zeros_like(leaf)
         with torch.enable_grad():
             for k in range(self._w_chunks.shape[0]):
-                pts, w = self._grid_chunk(leaf, k)
-                ao = eval_ao(basis, leaf, pts, deriv=1)
-                e = self._chunk_exc_from_ao(self.func, dm, ao, w)
+                e = self.exc_chunk_at(dm, leaf, k)
                 g, = torch.autograd.grad(e, leaf)
                 exc = exc + e.detach()
                 grad = grad + g
@@ -192,37 +200,140 @@ class _XCMixin:
                 vxc = vxc + g
         return exc, 0.5 * (vxc + vxc.transpose(-1, -2))
 
-    def fxc_action(self, dm0, P):
-        """The XC kernel's action: H P, H the Hessian of E_xc[D] at ``dm0``
-        ([nao, nao], or [2, nao, nao] for the two spins), for a batch P
-        [nvec, *dm0.shape] of directions that need not be symmetric
-        (cctpu's ``jax.jvp(jax.grad(_exc_total), (dm0,), (P,))``). Per grid
-        chunk the raw gradient g = dE/dD is taken with a graph (not
-        ``_exc_vxc``'s symmetrized one: with the GGA terms g depends on P's
-        antisymmetric part), then the Hessian-vector products
-        grad(<g, P>) for a slice of P at a time; summed over the chunks.
-        Returns [nvec, *dm0.shape], not symmetrized."""
+    @staticmethod
+    def _density_vars(ao, M, mgga: bool):
+        """The variables of ``_chunk_exc_from_ao`` linear in one spin's
+        density matrix M [..., nao, nao] (any batch, not assumed
+        symmetric), on AO values ao [4, chunk, nao]: rho [..., chunk],
+        grad rho [..., chunk, 3] (cctpu's 2 (grad phi)^T M phi) and, for a
+        meta-GGA, tau [..., chunk] (else None)."""
+        aoT = ao.transpose(1, 2)                          # [4, nao, chunk]
+        Ma = M @ aoT[0]                                   # [..., nao, chunk]
+        rho = torch.sum(aoT[0] * Ma, -2)
+        grad = torch.stack([2 * torch.sum(aoT[1 + d] * Ma, -2)
+                            for d in range(3)], -1)
+        tau = None
+        if mgga:
+            tau = 0.5 * sum(torch.sum(aoT[1 + d] * (M @ aoT[1 + d]), -2)
+                            for d in range(3))
+        return rho, grad, tau
+
+    def fxc_operator(self, dm0):
+        """P -> H P, H the Hessian of E_xc[D] at ``dm0`` ([nao, nao], or
+        [2, nao, nao] for the two spins) applied to a batch P [nvec,
+        *dm0.shape] of directions that need not be symmetric (cctpu's
+        ``jax.jvp(jax.grad(_exc_total), (dm0,), (P,))``: the raw gradient,
+        not ``_exc_vxc``'s symmetrized one, so with the GGA terms it
+        depends on P's antisymmetric part; the result is not symmetrized),
+        by the chain rule through the density variables. Per grid chunk,
+        once: the variables x at ``dm0`` (restricted: rho, sigma, tau of
+        D/2, both spins alike; else rho_s, sigma_aa, sigma_ab, sigma_bb,
+        tau_s) and the functional's first and second derivatives in them, w_p f_x and w_p f_xx, by autograd
+        over the points. Per call: the variables' change x1 along each P,
+        f_xx x1 with the sigma terms' second-order part (f_sigma times the
+        change of grad rho), and the adjoint back to the AO basis as one
+        backward of the linear map P -> (rho, grad rho, tau), no batched
+        double backward."""
         self._prepare_xc_f64()
-        dm_leaf = dm0.detach().requires_grad_(True)
-        P = P.detach().to(dm0.dtype)
-        nchunk, chunk = self._w_chunks.shape
-        # directions a backward: the batched graph holds a few
-        # [slice, nao, chunk] tensors
-        per = max(1, _FXC_ELEMS // (self.mol.nao * chunk))
-        out = torch.zeros_like(P)
-        with torch.enable_grad():
-            for k in range(nchunk):
-                e = self._chunk_exc_from_ao(self.func, dm_leaf,
-                                            self._chunk_ao(k),
-                                            self._w_chunks[k])
-                g, = torch.autograd.grad(e, dm_leaf, create_graph=True)
-                for s in range(0, P.shape[0], per):
-                    h, = torch.autograd.grad(
-                        g, dm_leaf, grad_outputs=P[s:s + per],
-                        retain_graph=s + per < P.shape[0],
-                        is_grads_batched=True)
-                    out[s:s + per] += h
-        return out
+        func, mgga = self.func, self.func.xctype == "MGGA"
+        restricted = dm0.ndim == 2
+        dm0 = dm0.detach()
+        chunks = []
+        for k in range(self._w_chunks.shape[0]):
+            ao, w = self._chunk_ao(k), self._w_chunks[k]
+            if restricted:
+                r, g, t = self._density_vars(ao, 0.5 * dm0, mgga)
+                xs = [r, torch.einsum("pd,pd->p", g, g)] + (
+                    [t] if mgga else [])
+
+                def f(x):
+                    t_ = x[2] if mgga else torch.zeros_like(x[0])
+                    return func.exc(x[0], x[0], x[1], x[1], x[1], t_, t_)
+                grads = [g]
+            else:
+                (ra, ga, ta), (rb, gb, tb) = (
+                    self._density_vars(ao, dm0[s], mgga) for s in range(2))
+                xs = [ra, rb, torch.einsum("pd,pd->p", ga, ga),
+                      torch.einsum("pd,pd->p", ga, gb),
+                      torch.einsum("pd,pd->p", gb, gb)] + (
+                    [ta, tb] if mgga else [])
+
+                def f(x):
+                    if mgga:
+                        return func.exc(*x)
+                    z = torch.zeros_like(x[0])
+                    return func.exc(*x, z, z)
+                grads = [ga, gb]
+            x = torch.stack(xs).requires_grad_(True)
+            with torch.enable_grad():
+                fx, = torch.autograd.grad(torch.sum(w * f(x)), x,
+                                          create_graph=True)
+                fxx = torch.stack([
+                    g if g is not None else torch.zeros_like(x)
+                    for g in (torch.autograd.grad(
+                        fx[i].sum(), x, retain_graph=i + 1 < len(xs),
+                        allow_unused=True)[0] for i in range(len(xs)))])
+            chunks.append((ao, fx.detach(), fxx, grads))
+
+        # directions a pass: a few [slice, nao, chunk] tensors at once
+        per = max(1, _FXC_ELEMS // (self.mol.nao * self._w_chunks.shape[1]))
+
+        def apply(P):
+            P = P.detach().to(dm0.dtype)
+            return torch.cat([apply_slice(P[s:s + per])
+                              for s in range(0, P.shape[0], per)])
+
+        def apply_slice(P):
+            out = torch.zeros_like(P)
+            for ao, fx, fxx, grads in chunks:
+                if restricted:
+                    r1, g1, t1 = self._density_vars(ao, 0.5 * P, mgga)
+                    g, = grads
+                    x1 = [r1, 2 * torch.einsum("pd,...pd->...p", g, g1)] + (
+                        [t1] if mgga else [])
+                    y = torch.einsum("ijp,j...p->i...p", fxx,
+                                     torch.stack(x1))
+                    cot = [(y[0], 2 * y[1][..., None] * g
+                            + 2 * fx[1][:, None] * g1,
+                            y[2] if mgga else None)]
+                    half = [0.5]
+                else:
+                    (ra1, ga1, ta1), (rb1, gb1, tb1) = (
+                        self._density_vars(ao, P[:, s], mgga)
+                        for s in range(2))
+                    ga, gb = grads
+                    x1 = [ra1, rb1,
+                          2 * torch.einsum("pd,...pd->...p", ga, ga1),
+                          torch.einsum("...pd,pd->...p", ga1, gb)
+                          + torch.einsum("pd,...pd->...p", ga, gb1),
+                          2 * torch.einsum("pd,...pd->...p", gb, gb1)] + (
+                        [ta1, tb1] if mgga else [])
+                    y = torch.einsum("ijp,j...p->i...p", fxx,
+                                     torch.stack(x1))
+                    cot = [(y[0], 2 * y[2][..., None] * ga
+                            + y[3][..., None] * gb
+                            + 2 * fx[2][:, None] * ga1
+                            + fx[3][:, None] * gb1,
+                            y[5] if mgga else None),
+                           (y[1], 2 * y[4][..., None] * gb
+                            + y[3][..., None] * ga
+                            + 2 * fx[4][:, None] * gb1
+                            + fx[3][:, None] * ga1,
+                            y[6] if mgga else None)]
+                    half = [1.0, 1.0]
+                # the adjoint of the linear map M -> (rho, grad, tau)
+                leaf = torch.zeros_like(P).requires_grad_(True)
+                with torch.enable_grad():
+                    e = 0.0
+                    for s, ((cr, cg, ct), h) in enumerate(zip(cot, half)):
+                        M = h * (leaf if restricted else leaf[:, s])
+                        r, g, t = self._density_vars(ao, M, mgga)
+                        e = e + torch.sum(cr * r) + torch.sum(cg * g)
+                        if mgga:
+                            e = e + torch.sum(ct * t)
+                    out += torch.autograd.grad(e, leaf)[0]
+            return out
+        return apply
 
 
 class RKS(_XCMixin, RHF):

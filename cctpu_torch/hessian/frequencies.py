@@ -1,13 +1,12 @@
-"""Hessians by finite differences, harmonic frequencies, IR intensities.
+"""Hessians, harmonic frequencies, IR intensities.
 
-Port of ``cctpu/hessian/frequencies.py``. The Hessian is the central
-difference of the analytic gradient over 6N displaced geometries, each
-SCF warm-started from the reference density; the dipole derivatives for
-IR intensities come from the same displaced SCFs. Each SCF and gradient
-runs on the SCF's device; the normal-mode analysis is host numpy.
-
-The analytic (CPHF) Hessian is not ported (ROADMAP.md queue 1 item 12):
-``hessian_auto`` takes the FD route and says so.
+Port of ``cctpu/hessian/frequencies.py``. ``hessian_auto`` takes the
+analytic (CPHF) Hessian of ``hessian/cphf.py``, as cctpu does, where it is
+known to fit on the card, else ``hessian_fd``: the central difference of
+the analytic gradient over 6N displaced geometries, each SCF warm-started
+from the reference density, with the dipole derivatives for IR
+intensities from the same displaced SCFs. Each runs on the SCF's device;
+the normal-mode analysis is host numpy.
 """
 
 from __future__ import annotations
@@ -21,6 +20,7 @@ from cctpu_torch.core.constants import AMU2AU, HARTREE2WAVENUMBER, \
     IR_KM_MOL
 from cctpu_torch.core.molecule import Molecule
 from cctpu_torch.grad.scf_grad import gradient as scf_gradient
+from cctpu_torch.hessian import cphf
 
 FD_STEP = 1e-3      # bohr
 
@@ -148,13 +148,26 @@ def _is_linear(mol: Molecule, tol: float = 1e-6) -> bool:
 
 def hessian_auto(mf, factory, mol, dm0=None, with_dipole: bool = True,
                  log=None, step: float = FD_STEP):
-    """The Hessian of the converged SCF ``mf`` at ``mol``: the FD of
-    analytic gradients, each displaced SCF warm-started from ``dm0``.
-    cctpu tries its analytic CPHF Hessian first; that is not ported, so
-    this takes the FD route outright. Returns (H [3N,3N], dmu_dR [3N,3] or
-    None)."""
+    """The Hessian of the converged SCF ``mf`` at ``mol``: the analytic
+    (AD-native CPHF) Hessian of ``hessian/cphf.py`` where it is known to
+    fit on the card (in core and Cholesky always; density-fitted while
+    dX/dR and dM/dR take at most ``cphf.DF_DX_BYTES_MAX``), else the FD of
+    analytic gradients, each displaced SCF of ``factory`` warm-started from
+    ``dm0``. Returns (H [3N,3N], dmu_dR [3N,3] or None).
+
+    cctpu tries its analytic route and falls back to FD on any exception;
+    the port chooses the route from the SCF's size before it starts, so an
+    error on the analytic route (an out-of-memory on the card included)
+    propagates."""
+    need = cphf.df_dx_bytes(mf)
+    if need <= cphf.DF_DX_BYTES_MAX:
+        if log:
+            log("  Hessian: analytic (AD-native CPHF)")
+        if with_dipole:
+            return cphf.analytic_hessian(mf, with_dipole=True)
+        return cphf.analytic_hessian(mf), None
     if log:
-        log("  Hessian: FD of analytic gradients (analytic CPHF: ROADMAP "
-            "queue 1 item 12)")
+        log(f"  Hessian: FD of analytic gradients (the analytic DF Hessian's "
+            f"dX/dR would take {need / 1e9:.1f} GB)")
     return hessian_fd(factory, mol, dm0=dm0, step=step,
                       with_dipole=with_dipole)

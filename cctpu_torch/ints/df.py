@@ -277,6 +277,22 @@ def metric_factor(M: torch.Tensor, rcond: float = 1e-11,
     return Linv / d[None, :]
 
 
+def eigh_whiten(X: torch.Tensor, M: torch.Tensor,
+                rcond: float) -> torch.Tensor:
+    """B = (V w^-1/2)^T X [nkeep-padded naux, nao, nao] from (P|ab) X and
+    the metric M = V diag(w) V^T, the eigenvalues at or below ``rcond``
+    times the largest given weight 0: cctpu's ``hessian/cphf.py::_traced_B``
+    (plain eigh, no diagonal preconditioning, unlike ``metric_factor``),
+    differentiable twice through ``torch.linalg.eigh``."""
+    w, V = torch.linalg.eigh(M)
+    keep = w > rcond * torch.max(w)
+    inv_sqrt = torch.where(keep, 1.0 / torch.sqrt(
+        torch.where(keep, w, torch.ones_like(w))), torch.zeros_like(w))
+    naux = X.shape[0]
+    return ((V * inv_sqrt[None, :]).T
+            @ X.reshape(naux, -1)).reshape(X.shape)
+
+
 class _BContractions:
     """J/K contractions over a factor tensor B [naux, nao, nao]
     ((ij|kl) ~= sum_P B[P,i,j] B[P,k,l]).

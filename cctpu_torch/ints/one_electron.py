@@ -126,7 +126,14 @@ def _c2s_np(l: int) -> np.ndarray:
 
 def c2s(l: int, like: torch.Tensor) -> torch.Tensor:
     """cart->sph matrix T[2l+1, ncart] on ``like``'s device and dtype."""
-    return torch.as_tensor(_c2s_np(l), dtype=like.dtype, device=like.device)
+    return _c2s_on(l, like.device, like.dtype)
+
+
+@lru_cache(maxsize=None)
+def _c2s_on(l: int, device, dtype) -> torch.Tensor:
+    """``_c2s_np(l)`` on ``device`` once (a copy from host memory waits for
+    the device's queue)."""
+    return torch.as_tensor(_c2s_np(l), dtype=dtype, device=device)
 
 
 def _to_sph(block_cart, la: int, lb: int):
@@ -145,8 +152,11 @@ def shell_pairs(na: int, nb: int, same: bool):
 
 
 def build_int1e_eager(basis: BasisSet, coords, charges,
-                      with_dipole: bool = False, dipole_origin=None):
-    """S, T, V (+ dipole [3, nao, nao]) as tensors on ``coords``' device.
+                      with_dipole: bool = False, dipole_origin=None,
+                      overlap_only: bool = False):
+    """S, T, V (+ dipole [3, nao, nao]) as tensors on ``coords``' device;
+    S alone with ``overlap_only`` (the analytic Hessian's Cholesky
+    transport differentiates it twice, without V's large intermediates).
 
     coords: [natm, 3] Bohr tensor; charges: [natm] tensor."""
     dev, dt = coords.device, coords.dtype
@@ -180,15 +190,18 @@ def build_int1e_eager(basis: BasisSet, coords, charges,
                 argsB = (t(gb.exps[ib]), t(gb.coefs[ib]),
                          coords[torch.as_tensor(gb.atom_idx[ib], device=dev)])
                 sblk, tblk = _overlap_kinetic_block(la, lb, *argsA, *argsB)
-                sblk, tblk = _to_sph(sblk, la, lb), _to_sph(tblk, la, lb)
-                vblk = _to_sph(_nuclear_block(la, lb, *argsA, *argsB, coords,
-                                              charges), la, lb)
+                blocks = [(S, _to_sph(sblk, la, lb))]
+                if not overlap_only:
+                    blocks += [(T, _to_sph(tblk, la, lb)),
+                               (V, _to_sph(_nuclear_block(
+                                   la, lb, *argsA, *argsB, coords, charges),
+                                   la, lb))]
                 r = torch.as_tensor(ga.ao_start[ia][:, None]
                                     + np.arange(sa), device=dev)
                 c = torch.as_tensor(gb.ao_start[ib][:, None]
                                     + np.arange(sb), device=dev)
                 ri, ci = r[:, :, None], c[:, None, :]
-                for M_, B_ in ((S, sblk), (T, tblk), (V, vblk)):
+                for M_, B_ in blocks:
                     M_[ri, ci] = B_
                     M_[ci.transpose(1, 2), ri.transpose(1, 2)] = \
                         B_.transpose(1, 2)

@@ -65,6 +65,14 @@ def _sign_vec(lcd: int) -> np.ndarray:
     return s
 
 
+@lru_cache(maxsize=None)
+def _on_device(table, key, device, dtype) -> torch.Tensor:
+    """A host table ``table(*key)`` on ``device`` once: a copy from host
+    memory waits for the device's queue, once per kernel call otherwise."""
+    arr = table(*key) if isinstance(key, tuple) else table(key)
+    return torch.as_tensor(arr, dtype=dtype, device=device)
+
+
 def eri_quartet_kernel(ls: Tuple[int, int, int, int],
                        eA, cA, A, eB, cB, B, eC, cC, C, eD, cD, D,
                        omega: Optional[float] = None):
@@ -90,7 +98,7 @@ def eri_quartet_kernel(ls: Tuple[int, int, int, int],
 
     Eb = _hermite_3d(la, lb, eA, eB, A, B, wab)        # [..., Kab, nab, T1]
     Ek = _hermite_3d(lc, ld, eC, eD, C, D, wcd)        # [..., Kcd, ncd, T2]
-    Ek = Ek * torch.as_tensor(_sign_vec(lcd), dtype=dt, device=dev)
+    Ek = Ek * _on_device(_sign_vec, lcd, dev, dt)
 
     batch = p.shape[:-2]
     pf = p.reshape(*batch, -1)
@@ -108,7 +116,7 @@ def eri_quartet_kernel(ls: Tuple[int, int, int, int],
         alpha = s * alpha
         pref = pref * torch.sqrt(s)
     Rb = r_box(lab + lcd, alpha, PQ) * pref[..., None]  # [..., Kab, Kcd, Tb]
-    idx = torch.as_tensor(_gather_idx(lab, lcd), device=dev)
+    idx = _on_device(_gather_idx, (lab, lcd), dev, None)
     Rbig = Rb[..., idx]                                # [..., Kab,Kcd,T1,T2]
 
     tmp = torch.einsum("...kqxy,...qcy->...kxc", Rbig, Ek)  # [.,Kab,T1,ncd]

@@ -6,9 +6,9 @@ transition densities through the SCF's J/K builder (``df_j_fast``, two
 densities a call, on DF and Cholesky factors; the in-core product), K of
 the whole batch in one call (``df_k_dm`` on DF and Cholesky factors, the
 in-core product), K_lr of a range-separated functional through the
-builder's ``k_lr`` (``df_k_dm`` on B_lr), and the XC kernel's action as
-Hessian-vector products of E_xc (``dft/rks.py::fxc_action``: cctpu's
-``jax.jvp`` through its AD vxc). The host runs the Davidson solvers
+builder's ``k_lr`` (``df_k_dm`` on B_lr), and the XC kernel's action
+(``dft/rks.py::fxc_operator``, set up once per TDDFT: cctpu's ``jax.jvp``
+through its AD vxc). The host runs the Davidson solvers
 (``response/davidson.py``) on numpy arrays.
 
 TDA (CIS-like) uses the Hermitian Davidson; full TDDFT (RPA) solves the
@@ -58,7 +58,7 @@ class TDDFT:
         self.ax = 1.0 if func is None else func.hyb
         self.rsh = None if func is None else func.rsh
         self.has_xc = func is not None and func.exc is not None
-        self.dm0 = mf.dm
+        self.fxc = mf.fxc_operator(mf.dm) if self.has_xc else None
         self.jk = mf.get_jk_builder()
         if self.rsh is not None:
             self.jk.prepare_lr(self.rsh[0])
@@ -96,7 +96,7 @@ class TDDFT:
                 V = V - beta * jk.k_lr(flat, omega).reshape(P.shape)
         if self.has_xc and singlet and mode != "amb":
             with phase(t, "fxc"):
-                f = self.mf.fxc_action(self.dm0, P)
+                f = self.fxc(P)
                 f = f + f.transpose(-1, -2)
                 V = V + (0.5 * f if unres else f)
         return V

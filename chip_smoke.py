@@ -89,18 +89,22 @@ Run from the root of a checkout. Phases, one printed line or more each:
    energy below the start; steps, SCF cycles, s/step and its split into
    ``setup``, ``scf``, ``gradient`` and ``step``, fused launches equal
    to the cycles, and the peak device memory of each step (no growth);
-8d. water FD Hessians with dipole derivatives (``hessian_auto``) at 8's
-   final coordinates as cctpu reached them: B3LYP frequencies <= 0.05
+8d. water Hessians with dipole derivatives at 8's final coordinates as
+   cctpu reached them. FD (``hessian_fd``): B3LYP frequencies <= 0.05
    cm^-1 and IR intensities <= 1e-3 relative from cctpu's ``hessian_fd``,
    ZPE, E_0K, H and G <= 1e-6 Ha from cctpu's ``thermo``; in-core RHF
    the Hessian <= 5e-5 Ha/bohr^2 and real frequencies <= 1 cm^-1 from
-   cctpu's analytic (CPHF) Hessian (cctpu's B3LYP and DF analytic
-   Hessians did not finish on the CPU: see scripts/make_opt_oracles.py);
+   cctpu's analytic (CPHF) Hessian. Analytic (``hessian_auto``, its log
+   line) on the same SCFs: in-core RHF <= 1e-6 from cctpu's analytic
+   Hessian; DF-B3LYP <= 1e-4 and frequencies <= 1 cm^-1 from cctpu's FD
+   Hessian and the port's (cctpu's B3LYP and DF analytic Hessians did not
+   finish on the CPU: see scripts/make_opt_oracles.py), ``df_j`` and
+   ``df_k_dm`` launched by its CG;
 8e. the ``opt`` CLI on water (``--skip-freq``: its frequencies are 10e's)
-   and the ``opt-freq`` CLI at its defaults (B3LYP/6-31+G**, in core, FD
-   frequencies) on H2 (the smallest molecule, for the script's time
-   limit): rc 0, the xyz, csv and report files, converged, no
-   imaginary mode, no J/K kernel (in core).
+   and the ``opt-freq`` CLI at its defaults (B3LYP/6-31+G**, in core, the
+   analytic Hessian, named in its report) on H2 (the smallest molecule,
+   for the script's time limit): rc 0, the xyz, csv and report files,
+   converged, no imaginary mode, no J/K kernel (in core).
 
 9. ``df_k`` at phenol's B_lr (9a's SCF; wB97X-D, omega 0.2, the
    attenuated metric factored at rcond 1e-10) against its plain version
@@ -125,9 +129,10 @@ Run from the root of a checkout. Phases, one printed line or more each:
 9f. the ``energy`` CLI with ``--method wb97x-d`` on its default route
    (in core) on water, and on phenol with ``--density-fit`` (against the
    Python API's SCF at the CLI's own geometry, <= 1e-10 Ha), and the
-   ``opt`` CLI with CAM-B3LYP/6-31G* and its FD frequencies (the
-   long-range gradient at every displacement) on H2: converged, no
-   imaginary mode (water and H2, for the script's time limit).
+   ``opt`` CLI with CAM-B3LYP/6-31G* and its frequencies (the analytic
+   Hessian with the long-range terms, named in its report) on H2:
+   converged, no imaginary mode (water and H2, for the script's time
+   limit).
 
 10. MP2 (6-31G*, SCFs at conv_tol 1e-12): water RMP2 in core and on its
    Cholesky factor, NH2 UMP2 in core, phenol DF-RHF then MP2 on its B;
@@ -147,11 +152,15 @@ Run from the root of a checkout. Phases, one printed line or more each:
    is out of reach); then the kernels against their plain versions at the
    parent SCF's own factor, as 7c;
 10d. the ``reaction`` CLI on "O + [H+] -> [OH3+]" at its defaults (with
-   FD frequencies, in core) and on "OO + 2[H] -> 2O" with --density-fit
-   --skip-freq: dE, dE0, dH and dG against cctpu's (<= 0.01 kcal/mol);
-10e. ``ir --smiles O`` at its defaults: frequencies <= 0.05 cm^-1 and
-   intensities <= 1e-3 relative from cctpu's FD route, the table written,
-   the PNG written or skipped (no matplotlib);
+   frequencies from the analytic Hessian, named in its report; in core)
+   and on "OO + 2[H] -> 2O" with --density-fit --skip-freq: dE, dE0, dH
+   and dG against cctpu's FD-route oracle (<= 0.01 kcal/mol);
+10e. ``ir --smiles O`` at its defaults (the analytic Hessian, named in its
+   report): the optimized energy <= 1e-6 Ha from cctpu's, frequencies <=
+   0.05 cm^-1 and intensities <= 2e-3 relative from cctpu's FD route and
+   from the port's FD Hessian of the CLI's own SCF (cctpu's analytic one
+   of this case is out of its CPU's reach), the table written, the PNG
+   written or skipped (no matplotlib);
 10f. ``interaction --smiles O --smiles2 O`` at its defaults (MP2/6-31+G*,
    3.5 A, counterpoise) and with --scan over 3.0-4.0 A: E_int (CP), raw
    and BSSE against cctpu's serial path (<= 1e-4 kcal/mol).
@@ -177,6 +186,22 @@ Run from the root of a checkout. Phases, one printed line or more each:
    Davidson block of 12: f64 <= 1e-12 relative, repeats, a density alone
    and a split batch bitwise equal; kernel / plain / bound times.
 
+12a. the analytic (CPHF) Hessian with dipoles
+   (``cctpu_torch.hessian.cphf.analytic_hessian``) of phenol
+   DF-B3LYP/6-31G* (grid level 2, conv_tol 1e-12) at 8c's optimized
+   geometry, two calls bitwise equal: the wall time split into L_RR/L_kR,
+   CG and dipole, the CG iterations, each kernel's launches (``df_j`` and
+   ``df_k_dm`` in the CG), the peak memory, |H - H^T| before the
+   symmetrization (<= 1e-5), three columns against central differences of
+   the port's gradients (h = 1e-3 bohr, <= 1e-4 Ha/bohr^2), no imaginary
+   mode, its dX/dR within ``cphf.DF_DX_BYTES_MAX`` (``hessian_auto``'s
+   analytic route);
+12b. NH2 DF-UB3LYP/6-31G* at 8b's optimized geometry against the port's
+   whole FD Hessian (<= 1e-4, frequencies <= 1 cm^-1);
+12c. water DF-CAM-B3LYP/6-31G* at 8's optimized geometry (K_lr on B_lr
+   in the CG, the long-range DF terms) against three of the port's FD
+   columns (O y and z, an H's z; <= 1e-4).
+
 The oracles of 8, 8b and 8d (``OPT_ORACLES``) come from
 ``python scripts/make_opt_oracles.py <case>``, those of 9a-9e
 (``RSH_ORACLES``) from ``python scripts/make_rsh_oracles.py <case>``,
@@ -192,8 +217,10 @@ factor, its launches in the optimizations (8-8c), the FD Hessian (8d)
 and the range-separated SCFs (9a, 9c-9e), its launches in the
 workflows (10-10f) and its numbers at 10c's def2-TZVP factor, and
 ``df_k``'s numbers at B_lr (9), and its launches in the TDDFT phases
-(11a-11c); ``df_k_dm``'s row has its launches there, its numbers at
-phenol's B with 12 densities and at every shape of phase 11. A ``clock``
+(11a-11c) and in the analytic Hessians (12a-12c); ``df_k_dm``'s row has
+its launches in the TDDFT phases, the Hessians of 8d and of 12, its
+numbers at phenol's B with 12 densities and at every shape of phase 11.
+A ``clock``
 line after each group of
 phases gives the seconds since the start. The last line is
 ``{"ok": true, "device": {...}}``. Needs no network and imports nothing
@@ -1434,19 +1461,23 @@ def phase_opt_phenol(dev):
     # their sizes move a little with it, a leak of the last step would not
     check(max(peaks) <= 1.05 * peaks[0],
           f"phenol opt: peak memory grows over the steps {peaks}")
-    return n
+    return n, res.mol
 
 
 def phase_hessian(dev):
-    """8d. Water FD Hessians with dipoles at cctpu's optimized water
-    geometry, through ``hessian_auto`` from an SCF there: DF-B3LYP against
-    cctpu's FD Hessian, harmonic analysis and thermo; in-core RHF against
-    cctpu's analytic (CPHF) Hessian (its B3LYP and DF ones did not finish
-    on the CPU)."""
+    """8d. Water Hessians with dipoles at cctpu's optimized water geometry,
+    from one SCF each there. The FD route (``hessian_fd``): DF-B3LYP
+    against cctpu's FD Hessian, harmonic analysis and thermo; in-core RHF
+    against cctpu's analytic (CPHF) Hessian (<= 5e-5, FD error). The
+    analytic route (``hessian_auto``) on the same SCFs: in-core RHF against
+    cctpu's analytic Hessian (<= 1e-6); DF-B3LYP against cctpu's FD
+    Hessian and the port's (<= 1e-4, frequencies <= 1 cm^-1: FD error;
+    cctpu's B3LYP and DF analytic Hessians did not finish on the CPU).
+    Returns the launches of both routes."""
     from cctpu_torch.core.molecule import Molecule
     from cctpu_torch.dft.rks import RKS
     from cctpu_torch.hessian.frequencies import harmonic_analysis, \
-        hessian_auto
+        hessian_auto, hessian_fd
     from cctpu_torch.hessian.thermo import thermo
     from cctpu_torch.scf.hf import RHF
     fd, an = OPT_ORACLES["water_b3lyp_fd"], OPT_ORACLES["water_rhf_analytic"]
@@ -1462,27 +1493,23 @@ def phase_hessian(dev):
         e = mf.kernel()
         reset_counts()
         t0 = time.time()
-        log = []
-        H, dmu = hessian_auto(mf, factory, mol, dm0=mf.make_rdm1(),
-                              log=log.append)
+        H, dmu = hessian_fd(factory, mol, dm0=mf.make_rdm1())
         n = counts()
         ha = harmonic_analysis(mol, H, dmu)
-        out[tag] = {"E": e, "wall_s": time.time() - t0, "log": log,
+        out[tag] = {"E": e, "wall_s": time.time() - t0,
                     "freq_cm": ha.freq_wavenumber.tolist(),
                     "ir_km_mol": ha.ir_intensity.tolist(),
                     "n_imaginary": ha.n_imaginary, "launches": n}
         n_all = {k: n_all.get(k, 0) + n[k] for k in n}
-        check(log and "FD of analytic gradients" in log[0],
-              f"hessian_auto did not name its FD route: {log}")
         check(ha.n_imaginary == 0, f"water {tag} has an imaginary mode")
         # B3LYP runs DF (the fused kernel in every SCF), RHF in core (none)
         check(n["df_j"] == n["df_k"] == 0 and (
             n["df_jk_fused"] >= 6 * mol.natm if tag == "b3lyp"
             else n["df_jk_fused"] == 0),
             f"water {tag} FD Hessian launches {n}")
+        res = out[tag]
         if tag == "b3lyp":
             th = thermo(mol, ha.freq_au, e)
-            res = out[tag]
             res["max_abs_dfreq_vs_cctpu_fd"] = float(np.abs(
                 ha.freq_wavenumber - np.asarray(fd["freq_cm"])).max())
             res["max_rel_dIR_vs_cctpu_fd"] = float(np.max(
@@ -1504,7 +1531,6 @@ def phase_hessian(dev):
         else:
             freq = ha.freq_wavenumber
             real = freq > 0
-            res = out[tag]
             res["max_abs_dH_vs_cctpu_analytic"] = float(np.abs(
                 H - np.asarray(an["hessian"])).max())
             res["max_abs_dfreq_vs_cctpu_analytic"] = float(np.abs(
@@ -1516,7 +1542,46 @@ def phase_hessian(dev):
                   f"water RHF frequencies "
                   f"{res['max_abs_dfreq_vs_cctpu_analytic']:.3f} cm^-1 off "
                   "the analytic Hessian's")
-    emit({"phase": "hessian_fd_water", **out})
+        # the analytic route on the same SCF
+        reset_counts()
+        t0 = time.time()
+        log = []
+        Ha, dmua = hessian_auto(mf, factory, mol, dm0=mf.make_rdm1(),
+                                log=log.append)
+        na = counts()
+        n_all = {k: n_all[k] + na[k] for k in n_all}
+        hb = harmonic_analysis(mol, Ha, dmua)
+        ana = {"wall_s": time.time() - t0, "log": log,
+               "freq_cm": hb.freq_wavenumber.tolist(),
+               "ir_km_mol": hb.ir_intensity.tolist(), "launches": na,
+               "max_abs_dH_vs_port_fd": float(np.abs(Ha - H).max()),
+               "max_abs_dfreq_vs_port_fd": float(np.abs(
+                   hb.freq_wavenumber - ha.freq_wavenumber).max())}
+        check(log == ["  Hessian: analytic (AD-native CPHF)"],
+              f"hessian_auto did not take the analytic route: {log}")
+        check(hb.n_imaginary == 0, f"water {tag} analytic: imaginary mode")
+        if tag == "b3lyp":
+            ana["max_abs_dH_vs_cctpu_fd"] = float(np.abs(
+                Ha - np.asarray(fd["hessian"])).max())
+            ana["max_abs_dfreq_vs_cctpu_fd"] = float(np.abs(
+                hb.freq_wavenumber - np.asarray(fd["freq_cm"])).max())
+            check(max(ana["max_abs_dH_vs_cctpu_fd"],
+                      ana["max_abs_dH_vs_port_fd"]) <= 1e-4
+                  and max(ana["max_abs_dfreq_vs_cctpu_fd"],
+                          ana["max_abs_dfreq_vs_port_fd"]) <= 1.0,
+                  f"water B3LYP analytic Hessian off the FD ones: {ana}")
+            check(na["df_j"] > 0 and na["df_k_dm"] > 0
+                  and na["df_jk_fused"] == 0 and na["df_k"] == 0,
+                  f"water B3LYP analytic Hessian launches {na}")
+        else:
+            ana["max_abs_dH_vs_cctpu_analytic"] = float(np.abs(
+                Ha - np.asarray(an["hessian"])).max())
+            check(ana["max_abs_dH_vs_cctpu_analytic"] <= 1e-6,
+                  f"water RHF analytic |H - H_cctpu| "
+                  f"{ana['max_abs_dH_vs_cctpu_analytic']:.2e}")
+            check(not any(na.values()), f"in-core Hessian launched {na}")
+        res["analytic"] = ana
+    emit({"phase": "hessian_water", **out})
     return n_all
 
 
@@ -1553,12 +1618,17 @@ def phase_cli_opt(runs=(("opt", "O", ("_optimized.xyz",), ("--skip-freq",)),
         no_imag = ("--skip-freq" in args
                    or ("no imaginary frequencies" in text if name == "opt"
                        else "imaginary: 0" in text))
+        analytic = ("--skip-freq" in args
+                    or "Hessian: analytic (AD-native CPHF)" in text)
         emit({"phase": f"{tag}_{name}", "rc": rc, "wall_s": wall,
               "files": sorted(names), "converged": converged,
-              "no_imaginary_mode": no_imag, "launches": counts()})
-        check(rc == 0 and not missing and converged and no_imag,
+              "no_imaginary_mode": no_imag, "analytic_hessian": analytic,
+              "launches": counts()})
+        check(rc == 0 and not missing and converged and no_imag
+              and analytic,
               f"{name} CLI: rc {rc}, missing {missing}, converged "
-              f"{converged}, no imaginary mode {no_imag}")
+              f"{converged}, no imaginary mode {no_imag}, analytic "
+              f"Hessian logged {analytic}")
         check(not any(counts().values()),
               f"{name} CLI's in-core route launched {counts()}")
 
@@ -1970,6 +2040,9 @@ def run_reaction(text, args, key):
           "species_s": {a[0]: s for a, _, _, s in rec}, "launches": n})
     check(rc == 0 and "K_eq" in report and max(dev_kcal.values()) <= 0.01,
           f"{key}: rc {rc}, deviations from cctpu {dev_kcal} kcal/mol")
+    check("--skip-freq" in args
+          or "Hessian: analytic (AD-native CPHF)" in report,
+          f"{key}: the analytic Hessian route is not in the report")
     return n
 
 
@@ -1988,35 +2061,66 @@ def phase_reaction():
 
 def phase_ir():
     """10e. ``ir --smiles O`` at its defaults (B3LYP/6-31G*, grid level 3,
-    in core): frequencies <= 0.05 cm^-1 and intensities <= 1e-3 relative
-    from cctpu's FD route; the table written; the PNG written, or skipped
-    where matplotlib is missing."""
+    in core; the analytic Hessian, named in its report): the optimization
+    against cctpu's (energy <= 1e-6 Ha), the frequencies and intensities
+    against cctpu's FD route and against the port's FD Hessian of the
+    CLI's own SCF (``hessian_fd``, the factory and geometry the CLI
+    passed on), each <= 0.05 cm^-1 and 2e-3 relative (3 and 2 times the
+    0.016 cm^-1 and 9.9e-4 measured against both: the FD error); the table
+    written; the PNG written, or skipped where matplotlib is missing."""
+    from cctpu_torch.hessian.frequencies import harmonic_analysis, hessian_fd
     from cctpu_torch.workflows import calculate_ir_spectrum
     reset_counts()
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.time()
-        ha = calculate_ir_spectrum.main(["--smiles", "O", "--output-dir",
-                                         tmp])
-        wall = time.time() - t0
-        text = _short_report(tmp)
-        png = any(f.endswith("_ir.png") for f in os.listdir(tmp))
+    rec, restore = _recording(calculate_ir_spectrum, "hessian_auto")
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.time()
+            ha = calculate_ir_spectrum.main(["--smiles", "O", "--output-dir",
+                                             tmp])
+            wall = time.time() - t0
+            text = _short_report(tmp)
+            png = any(f.endswith("_ir.png") for f in os.listdir(tmp))
+    finally:
+        restore()
+    n = counts()
+    (mf, factory, mol), kw, _, hess_s = rec[0]
+    t0 = time.time()
+    ha_fd = harmonic_analysis(mol, *hessian_fd(factory, mol, dm0=kw["dm0"]))
+    fd_s = time.time() - t0
     orc = WORKFLOW_ORACLES["ir_water"]
-    dfreq = float(np.abs(ha.freq_wavenumber - orc["freq"]).max())
-    dir_rel = float(np.max(np.abs(ha.ir_intensity - orc["ir"])
-                           / np.abs(orc["ir"])))
+    de = abs(mf.e_tot - orc["e_opt"])
+    dev = {"port_fd": (float(np.abs(ha.freq_wavenumber
+                                    - ha_fd.freq_wavenumber).max()),
+                       float(np.max(np.abs(ha.ir_intensity
+                                           - ha_fd.ir_intensity)
+                                    / np.abs(ha_fd.ir_intensity)))),
+           "cctpu_fd": (float(np.abs(ha.freq_wavenumber
+                                     - orc["freq"]).max()),
+                        float(np.max(np.abs(ha.ir_intensity - orc["ir"])
+                                     / np.abs(orc["ir"]))))}
     skipped = "IR plot skipped" in text
-    emit({"phase": "cli_ir_water", "wall_s": wall,
+    emit({"phase": "cli_ir_water", "wall_s": wall, "hessian_s": hess_s,
+          "port_fd_hessian_s": fd_s,
           "freq_cm": ha.freq_wavenumber.tolist(),
           "ir_km_mol": ha.ir_intensity.tolist(),
-          "max_abs_dfreq_vs_cctpu": dfreq, "max_rel_dIR_vs_cctpu": dir_rel,
-          "png": png, "png_skipped": skipped, "launches": counts()})
-    check(dfreq <= 0.05 and dir_rel <= 1e-3,
-          f"ir: frequencies {dfreq:.3f} cm^-1, IR {dir_rel:.2e} off cctpu")
+          "abs_dE_opt_vs_cctpu": de,
+          "max_abs_dfreq_vs_port_fd": dev["port_fd"][0],
+          "max_rel_dIR_vs_port_fd": dev["port_fd"][1],
+          "max_abs_dfreq_vs_cctpu_fd": dev["cctpu_fd"][0],
+          "max_rel_dIR_vs_cctpu_fd": dev["cctpu_fd"][1],
+          "png": png, "png_skipped": skipped, "launches": n})
+    check(de <= 1e-6, f"ir: optimized energy {de:.2e} Ha off cctpu's")
+    for ref, (dfreq, dir_rel) in dev.items():
+        check(dfreq <= 0.05 and dir_rel <= 2e-3,
+              f"ir: frequencies {dfreq:.3f} cm^-1, IR {dir_rel:.2e} off "
+              f"the {ref} Hessian")
+    check("Hessian: analytic (AD-native CPHF)" in text,
+          "ir: the analytic Hessian route is not in the report")
     rows = [f"{f:12.1f} {i:12.2f}  " for f, i in zip(ha.freq_wavenumber,
                                                       ha.ir_intensity)]
     check("assignment" in text and all(r in text for r in rows)
           and png != skipped, f"ir: table or plot missing, png {png}")
-    check(not any(counts().values()), f"in-core ir launched {counts()}")
+    check(not any(n.values()), f"in-core ir launched {n}")
 
 
 def phase_interaction():
@@ -2257,6 +2361,157 @@ def phase_k_dm(factors, batch=12):
     return out
 
 
+HESSIAN_SCF = dict(xc="b3lyp", density_fit=True, grid_level=2,
+                   conv_tol=1e-12, conv_tol_grad=1e-8, max_cycle=100)
+# phase 12's bounds against central differences of the port's gradients
+# (h = 1e-3 bohr): their truncation and SCF noise, ~1e-6 measured
+FD_HESSIAN_TOL = 1e-4
+
+
+def hessian_run(mf, dev):
+    """One ``analytic_hessian`` call with dipoles, the kernels' launch
+    counts reset just before and read just after: (H, dmu, record of the
+    wall time, its split, CG iterations, launches, peak memory)."""
+    import torch
+    from cctpu_torch.hessian.cphf import analytic_hessian
+    from cctpu_torch.utils.profiling import PhaseTimer
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    timer, stats = PhaseTimer(dev), {}
+    reset_counts()
+    t0 = time.time()
+    H, dmu = analytic_hessian(mf, with_dipole=True, timer=timer,
+                              stats=stats)
+    torch.cuda.synchronize(dev)
+    ph = timer.phases
+    return H, dmu, {
+        "wall_s": time.time() - t0,
+        "L_RR_L_kR_s": sum(ph.get(k, 0.0) for k in ("transport", "1e", "2e",
+                                                     "xc", "nuc")),
+        "cg_s": ph.get("cg", 0.0), "dipole_s": ph.get("dipole", 0.0),
+        "phases_s": ph, **stats, "launches": counts(),
+        "peak_mem_GB": torch.cuda.max_memory_allocated(dev) / 1e9}
+
+
+def fd_hessian_columns(mf, comps, opts, h=1e-3):
+    """Rows 3 atom + axis of the Hessian by central differences of the
+    port's gradients: SCFs of ``mf``'s kind with ``opts`` at +-h bohr along
+    each of ``comps`` [(atom, axis)], warm started from ``mf.dm``."""
+    from cctpu_torch.grad.scf_grad import gradient
+    out = {}
+    for ia, ax in comps:
+        g = []
+        for sgn in (1.0, -1.0):
+            c = mf.mol.coords.copy()
+            c[ia, ax] += sgn * h
+            m2 = type(mf)(mf.mol.with_coords(c), device=mf.device, **opts)
+            m2.kernel(dm0=mf.dm)
+            check(m2.converged, f"FD SCF at {ia},{ax} did not converge")
+            g.append(gradient(m2).cpu().numpy().ravel())
+        out[3 * ia + ax] = (g[0] - g[1]) / (2 * h)
+    return out
+
+
+def phase_hessian_phenol(dev, mol):
+    """12a. The analytic Hessian of phenol DF-B3LYP/6-31G* (grid level 2,
+    conv_tol 1e-12) at phase 8c's optimized geometry, twice: bitwise
+    equal, |H - H^T| before the symmetrization, the wall time split into
+    L_RR/L_kR, CG and dipole, the CG iterations, the launches of each
+    kernel, the peak memory; three columns against central differences of
+    the port's gradients (<= ``FD_HESSIAN_TOL``); no imaginary mode."""
+    from cctpu_torch.dft.rks import RKS
+    from cctpu_torch.hessian.frequencies import harmonic_analysis
+    mf = RKS(mol, device=dev, **HESSIAN_SCF)
+    t0 = time.time()
+    mf.kernel()
+    scf_s = time.time() - t0
+    check(mf.converged, "phenol SCF at the optimized geometry")
+    runs = [hessian_run(mf, dev) for _ in range(2)]
+    (H, dmu, rec), (H2, dmu2, rec2) = runs
+    bitwise = bool(np.array_equal(H, H2) and np.array_equal(dmu, dmu2))
+    # O y, the hydroxyl H x, C1 y (phase 3e's components)
+    t0 = time.time()
+    cols = fd_hessian_columns(mf, [(6, 1), (7, 0), (0, 1)], HESSIAN_SCF)
+    dcol = max(float(np.abs(H[k] - c).max()) for k, c in cols.items())
+    ha = harmonic_analysis(mol, H, dmu)
+    from cctpu_torch.hessian import cphf
+    dx = cphf.df_dx_bytes(mf)
+    emit({"phase": "hessian_phenol_b3lyp", "card": card_line(),
+          "natm": mol.natm, "scf_s": scf_s, "scf_cycles": mf.n_cycles,
+          "df_dx_GB": dx / 1e9,
+          "runs": [rec, rec2], "bitwise_repeat": bitwise,
+          "max_abs_dH_vs_port_fd_columns": dcol,
+          "fd_columns_s": time.time() - t0,
+          "freq_cm": ha.freq_wavenumber.tolist(),
+          "n_imaginary": ha.n_imaginary})
+    check(bitwise, "phenol analytic Hessian: two calls differ")
+    check(dx <= cphf.DF_DX_BYTES_MAX,
+          f"phenol's dX/dR {dx / 1e9:.1f} GB: hessian_auto would take FD")
+    check(dcol <= FD_HESSIAN_TOL,
+          f"phenol Hessian columns {dcol:.2e} off the port's FD")
+    check(ha.n_imaginary == 0, "phenol at 8c's geometry: imaginary mode")
+    check(rec["max_abs_asymmetry"] <= 1e-5,
+          f"phenol |H - H^T| {rec['max_abs_asymmetry']:.2e}")
+    n = rec["launches"]
+    check(n["df_j"] > 0 and n["df_k_dm"] > 0,
+          f"phenol analytic Hessian launches {n}")
+    return {k: rec["launches"][k] + rec2["launches"][k] for k in n}
+
+
+def phase_hessian_small(dev):
+    """12b-c. NH2 DF-UB3LYP/6-31G* at 8b's optimized geometry against the
+    port's whole FD Hessian with dipoles (``hessian_fd``); water
+    DF-CAM-B3LYP/6-31G* at 8's optimized geometry (K_lr's response and the
+    long-range terms) against three of the port's FD columns: <=
+    ``FD_HESSIAN_TOL``; NH2's frequencies <= 1 cm^-1."""
+    from cctpu_torch.core.molecule import Molecule
+    from cctpu_torch.dft.rks import RKS, UKS
+    from cctpu_torch.hessian.frequencies import harmonic_analysis, hessian_fd
+    n_all = {}
+    # NH2: the whole FD Hessian
+    mol = Molecule.from_atoms(NH2_START, spin=1, basis="6-31g*").with_coords(
+        np.asarray(OPT_ORACLES["nh2_ub3lyp"]["coords"]))
+    mf = UKS(mol, device=dev, **HESSIAN_SCF)
+    mf.kernel()
+    check(mf.converged, "NH2 SCF at the optimized geometry")
+    H, dmu, rec = hessian_run(mf, dev)
+    n_all = dict(rec["launches"])
+    t0 = time.time()
+    Hf, dmuf = hessian_fd(lambda m: UKS(m, device=dev, **HESSIAN_SCF), mol,
+                          dm0=mf.dm)
+    ha, hf = harmonic_analysis(mol, H, dmu), harmonic_analysis(mol, Hf, dmuf)
+    res = {"max_abs_dH_vs_port_fd": float(np.abs(H - Hf).max()),
+           "max_abs_ddmu_vs_port_fd": float(np.abs(dmu - dmuf).max()),
+           "max_abs_dfreq_vs_port_fd": float(np.abs(
+               ha.freq_wavenumber - hf.freq_wavenumber).max())}
+    emit({"phase": "hessian_nh2_ub3lyp", **rec, "fd_s": time.time() - t0,
+          "freq_cm": ha.freq_wavenumber.tolist(), **res})
+    check(res["max_abs_dH_vs_port_fd"] <= FD_HESSIAN_TOL
+          and res["max_abs_dfreq_vs_port_fd"] <= 1.0,
+          f"NH2 analytic Hessian off the port's FD: {res}")
+    # water CAM-B3LYP: FD columns
+    mol = Molecule.from_atoms(WATER_START, basis="6-31g*").with_coords(
+        np.asarray(OPT_ORACLES["water_b3lyp"]["coords"]))
+    opts = {**HESSIAN_SCF, "xc": "cam-b3lyp"}
+    mf = RKS(mol, device=dev, **opts)
+    mf.kernel()
+    check(mf.converged, "water CAM-B3LYP SCF")
+    H, dmu, rec = hessian_run(mf, dev)
+    n_all = {k: n_all[k] + rec["launches"][k] for k in n_all}
+    t0 = time.time()
+    # O y and z, the first H's z (the molecule lies in x = 0)
+    cols = fd_hessian_columns(mf, [(0, 1), (0, 2), (1, 2)], opts)
+    dcol = max(float(np.abs(H[k] - c).max()) for k, c in cols.items())
+    emit({"phase": "hessian_water_camb3lyp", **rec,
+          "fd_s": time.time() - t0, "max_abs_dH_vs_port_fd_columns": dcol,
+          "freq_cm": harmonic_analysis(mol, H, dmu).freq_wavenumber
+          .tolist()})
+    check(dcol <= FD_HESSIAN_TOL,
+          f"water CAM-B3LYP Hessian columns {dcol:.2e} off the port's FD")
+    check(rec["launches"]["df_k_dm"] > 0, "water CAM-B3LYP: no df_k_dm")
+    return n_all
+
+
 def mark(t0, after):
     emit({"phase": "clock", "after": after, "s": time.time() - t0})
 
@@ -2353,7 +2608,7 @@ def main():
     _, n_nh2 = phase_opt("nh2_ub3lyp", UKS, NH2_START, 1, dev)
     n_opt = {k: n_opt[k] + n_nh2[k] for k in n_opt}
     mark(t_start, "8b")
-    n_phenol = phase_opt_phenol(dev)
+    n_phenol, phenol_opt = phase_opt_phenol(dev)
     n_opt = {k: n_opt[k] + n_phenol[k] for k in n_opt}
     torch.cuda.empty_cache()
     mark(t_start, "8c")
@@ -2416,6 +2671,13 @@ def main():
     torch.cuda.empty_cache()
     mark(t_start, "11")
 
+    n_h12 = phase_hessian_phenol(dev, phenol_opt)
+    torch.cuda.empty_cache()
+    mark(t_start, "12a")
+    n = phase_hessian_small(dev)
+    n_h12 = {k: n_h12[k] + n[k] for k in n_h12}
+    mark(t_start, "12c")
+
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
     cd_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -2436,6 +2698,7 @@ def main():
                        "launches_rsh": n_rsh[name],
                        "launches_workflows": n_wf[name],
                        "launches_uv": n_uv[name],
+                       "launches_hessian_analytic": n_h12[name],
                        "cholesky_shape": {k: cd_kernels[name][k]
                                           for k in cd_keys},
                        "def2tzvp_shape": {k: tzvp[name][k]
@@ -2448,6 +2711,8 @@ def main():
                  "replaces": "cctpu/ints/df.py:1359-1360 (an XLA einsum: "
                              "no TPU kernel)",
                  "launches": n_uv["df_k_dm"],
+                 "launches_hessian": n_hess["df_k_dm"],
+                 "launches_hessian_analytic": n_h12["df_k_dm"],
                  **{k: main_k_dm[k] for k in keys if k != "launches"},
                  "shapes": {name: {k: row[k] for k in cd_keys}
                             for name, row in k_dm.items()}}]})

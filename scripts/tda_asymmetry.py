@@ -62,7 +62,7 @@ def asymmetry(mf, device):
     X = [x.reshape(n, Co[s].shape[1], Cv[s].shape[1])
          for s, x in enumerate(X)]
     P = torch.stack([Co[s] @ X[s] @ Cv[s].T for s in range(2)], 1)
-    f = mf.fxc_action(mf.dm, P)
+    f = mf.fxc_operator(mf.dm)(P)
     pieces = {"J": td.jk.j(P[:, 0] + P[:, 1])[:, None].expand_as(P),
               "K": td.jk.k(P.reshape(-1, *P.shape[-2:])).reshape(P.shape),
               "fxc": 0.5 * (f + f.transpose(-1, -2))}

@@ -9,9 +9,10 @@ within 1e-13 on inputs from a numpy seed. Water HF/STO-3G optimized from
 cctpu's tests/test_geomopt.py start by both packages: the same steps,
 energies within 1e-9 Ha, final coordinates within 1e-6 bohr. The FD
 Hessian with dipole derivatives of water HF/STO-3G: H and dmu/dR within
-1e-7 of cctpu's, then harmonic analysis and thermochemistry of one H
-through both packages within 1e-10 relative. Then the ``opt`` and
-``opt-freq`` CLIs with ``--device cpu``.
+1e-7 of cctpu's, ``hessian_auto``'s analytic one within 5e-5 of it, then
+harmonic analysis and thermochemistry of one H through both packages
+within 1e-10 relative. Then the ``opt`` and ``opt-freq`` CLIs with
+``--device cpu`` (the analytic Hessian route).
 """
 
 import numpy as np
@@ -112,10 +113,18 @@ def test_hessian_fd_harmonic_thermo_match_cctpu():
     jmf.kernel()
     tmf.kernel()
     Hj, dj = jfreq.hessian_fd(lambda m: JRHF(m), jm, dm0=jmf.dm)
-    Ht, dt = tfreq.hessian_auto(tmf, lambda m: TRHF(m, device="cpu"), tm,
-                                dm0=tmf.make_rdm1())
+    Ht, dt = tfreq.hessian_fd(lambda m: TRHF(m, device="cpu"), tm,
+                              dm0=tmf.make_rdm1())
     assert np.abs(Ht - Hj).max() <= 1e-7
     assert np.abs(dt - dj).max() <= 1e-7
+    # hessian_auto takes the analytic (CPHF) route here: within cctpu's
+    # own bound of its analytic Hessian against FD
+    # (tests/test_analytic_hessian.py)
+    log = []
+    Ha, da = tfreq.hessian_auto(tmf, lambda m: TRHF(m, device="cpu"), tm,
+                                dm0=tmf.make_rdm1(), log=log.append)
+    assert log == ["  Hessian: analytic (AD-native CPHF)"]
+    assert np.abs(Ha - Ht).max() <= 5e-5
     ht = tfreq.harmonic_analysis(tm, Ht, dt)
     hj = jfreq.harmonic_analysis(jm, Ht, dt)
     assert ht.n_imaginary == hj.n_imaginary == 0
@@ -140,7 +149,7 @@ def test_cli_opt_and_opt_freq(tmp_path, capsys):
     assert cli.main(["opt-freq", "--smiles", "[H][H]", *common,
                      "--output-dir", str(tmp_path / "optfreq")]) == 0
     log = capsys.readouterr().out
-    assert log.count("Hessian: FD of analytic gradients") == 2
+    assert log.count("Hessian: analytic (AD-native CPHF)") == 2
     for sub, suffixes in (("opt", ("_optimized.xyz", "_short_report.txt",
                                    "_log_report.txt", "_config.json")),
                           ("optfreq", ("_optimized.xyz", "_ir.csv",

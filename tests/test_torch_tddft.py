@@ -5,7 +5,7 @@
     non-symmetric batches at an odd nao (<= 1e-12 relative);
 (b) the Davidson solvers against cctpu's on a synthetic diagonally
     dominant operator (numpy only; eigenvalues <= 1e-10);
-(c) the XC kernel's action ``fxc_action`` against cctpu's
+(c) the XC kernel's action ``fxc_operator`` against cctpu's
     ``jax.jvp(jax.grad(mf._exc_total))`` from the same dm0: B3LYP
     (restricted, non-symmetric P), UB3LYP on OH (stacked P) and M06-2X
     (<= 1e-10 relative);
@@ -245,7 +245,7 @@ def test_fxc_action_matches_cctpu_jvp():
         jmf = (JUKS if spec["spin"] else JRKS)(
             jmol, xc=xc, grid_level=spec["grid_level"])
         P = rng.standard_normal((3, *dm0.shape))
-        got = mf.fxc_action(dm0, torch.as_tensor(P)).numpy()
+        got = mf.fxc_operator(dm0)(torch.as_tensor(P)).numpy()
         d0 = jnp.asarray(dm0.numpy())
         ref = jax.jit(jax.vmap(lambda p: jax.jvp(
             jax.grad(jmf._exc_total), (d0,), (p,))[1]))(jnp.asarray(P))

@@ -230,6 +230,6 @@ def test_workflow_clis_match_cctpu(tmp_path, capsys):
     assert len(ha.freq_wavenumber) == 1
     assert 5000 < ha.freq_wavenumber[0] < 5800 and ha.ir_intensity[0] >= 0
     text = capsys.readouterr().out
-    assert "Hessian: FD of analytic gradients" in text
+    assert "Hessian: analytic (AD-native CPHF)" in text
     assert "assignment" in text and ("IR plot ->" in text
                                      or "IR plot skipped" in text)
