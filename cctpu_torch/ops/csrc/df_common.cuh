@@ -81,6 +81,21 @@ __device__ __forceinline__ void mma1684(double (&c)[4], double a0, double a1,
       : "d"(a0), "d"(a1), "d"(b));
 }
 
+// c[16x8] += a[16x16] b[16x8] on the FP64 tensor cores, in one
+// instruction (the same rate as m16n8k4, ops/bench_mma.py). A lane holds
+// a[i] = a[g + 8 (i % 2)][t + 4 (i / 2)], b[i] = b[t + 4 i][g] and c as
+// mma1684's.
+__device__ __forceinline__ void mma16816(double (&c)[4], const double (&a)[8],
+                                         const double (&b)[4]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f64.f64.f64.f64 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7, %8, %9, %10, %11}, "
+      "{%12, %13, %14, %15}, {%0, %1, %2, %3};\n"
+      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(a[4]), "d"(a[5]),
+        "d"(a[6]), "d"(a[7]), "d"(b[0]), "d"(b[1]), "d"(b[2]), "d"(b[3]));
+}
+
 // The most dynamic shared memory one block of the current device may opt
 // in to, in bytes.
 inline cudaError_t smem_optin(size_t* cap) {

@@ -7,7 +7,8 @@
 //   m16n8kK  (K = 4, 8, 16) a_i = a[g + 8 (i % 2)][t + 4 (i / 2)];
 //            b_i = b[t + 4 i][g];
 //            c_i = c[g + 8 (i / 2)][2t + i % 2]
-//            (K = 4 through df_wk.cuh's mma1684, which wk_mma is built on)
+//            (K = 4 and 16 through df_common.cuh's mma1684 and mma16816,
+//            which wk_mma and kdm_mma are built on)
 //
 // C interface (bound with ctypes): a [M, K], b [K, 8], c [M, 8] are
 // row-major device arrays; shape is 884, 1684, 1688 or 16816.
@@ -36,13 +37,7 @@ __device__ __forceinline__ void mma16(double (&c)[4], const double (&a)[KK / 2],
         : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
         : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
   } else {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f64.f64.f64.f64 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7, %8, %9, %10, %11}, "
-        "{%12, %13, %14, %15}, {%0, %1, %2, %3};\n"
-        : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
-        : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(a[4]), "d"(a[5]),
-          "d"(a[6]), "d"(a[7]), "d"(b[0]), "d"(b[1]), "d"(b[2]), "d"(b[3]));
+    dfc::mma16816(c, a, b);
   }
 }
 

@@ -1,6 +1,7 @@
 """The launch plans of the DF kernels: ``wk_plan`` for the DF-W/K device
 code (``csrc/df_wk.cuh``), ``j_plan`` for the DF-J kernels
-(``csrc/df_j.cu``; see ``j_plan``'s docstring).
+(``csrc/df_j.cu``; see ``j_plan``'s docstring), ``k_dm_plan`` for the
+exchange of general densities (``csrc/df_k_dm.cu``; see its docstring).
 
 ``wk_plan`` is the one place where a W/K plan is chosen: a pure function
 of the shape, the element size, the shared-memory cap and whether the
@@ -34,6 +35,7 @@ Two kinds of plan:
 from __future__ import annotations
 
 import functools
+import itertools
 
 THREADS = 512
 WARPS = THREADS // 32
@@ -320,3 +322,126 @@ def j_plan_ints(plan: dict) -> tuple:
     order (kind: 1 for ``two_pass``)."""
     return tuple(int(plan[k] == "two_pass") if k == "kind" else plan[k]
                  for k in J_PLAN_INTS)
+
+
+# df_k_dm.cu's launch constants: the columns of a tile (one mma deep: one
+# 128-byte swizzled tensor-copy box), the head of the shared memory (the
+# stages' mbarriers; 1024 bytes, the alignment of the swizzled tiles after
+# it), the tiles a job (one ring stage, one barrier) stages and the ring
+# depths, tried in this order
+KDM_KT = 16
+KDM_HEADER_BYTES = 1024
+KDM_JTS = (2, 1)
+KDM_STAGES = (4, 3, 2)
+# the instantiations of kdm_mma (template arguments in df_k_dm.cu): the 8
+# warps form a 2 x 4 grid (warp w takes column group w % 4, so each
+# tensor-core sub-partition holds one, and row half w / 4); at most mtk
+# 16-row tiles of K and mtw of a V chunk and nt 8-column tiles a warp holds
+# in registers; d_res: D[s] in shared memory for the block's whole aux
+# range (else its tiles stream through the ring); for nao up to
+# 16 * mt_max
+KDM_VARIANTS = {
+    "a": {"id": 0, "mt_max": 8, "mtk": 4, "mtw": 4, "nt": 2, "d_res": 1},
+    "b": {"id": 1, "mt_max": 14, "mtk": 7, "mtw": 4, "nt": 2, "d_res": 0},
+    "c": {"id": 2, "mt_max": 24, "mtk": 12, "mtw": 4, "nt": 1, "d_res": 0},
+}
+# the order of the plan integers in df_k_dm.cu's C entry
+KDM_PLAN_INTS = ("variant", "nj", "nh", "jt", "stages", "groups", "rows",
+                 "tma", "smem_bytes")
+
+
+def k_dm_smem_bytes(nao: int, nj: int, nh: int, jt: int, stages: int,
+                    d_res: int) -> int:
+    """Dynamic shared memory of a ``kdm_mma`` block (df_k_dm.cu recomputes
+    the same sum): the header, the ring (a stage holds an A job's jt
+    tiles, D[s]'s chunk rows (streamed D) and the panel's rows of B[p], or
+    a B job's rows of B[p], rows of jt * KDM_KT + 2 doubles, the cp.async
+    stride; 1024-byte multiples), V^T [8 nj, Mp + 2] and, resident, D[s]
+    [Mp, Mp + 2]."""
+    mt = _cdiv(nao, 16)
+    mp, lh = 16 * mt, 16 * _cdiv(mt, nh)
+    stage = _cdiv((jt * KDM_KT + 2) * max(8 * nj + (0 if d_res else lh), mp),
+                  128) * 128
+    return KDM_HEADER_BYTES + 8 * (stages * stage + 8 * nj * (mp + 2) + (
+        mp * (mp + 2) if d_res else 0))
+
+
+def k_dm_plan(naux: int, nao: int, sms: int = SMS_H100,
+              smem_cap: int = SMEM_CAP_H100) -> dict:
+    """The plan of one ``df_k_dm`` launch for B [naux, nao, nao] on a card
+    of ``sms`` SMs whose blocks may use ``smem_cap`` bytes of shared
+    memory. It does not take the number of densities: nothing that sets
+    the order of a density's sum depends on the batch.
+
+    A block owns the column panel J (``nj`` 8-column tiles) of K[s] for one
+    density and one of ``groups`` contiguous ranges of ``rows`` aux rows,
+    and keeps K[:, J] in registers over its whole range. Per aux row it
+    forms V = D[s] B[p][J, :]^T in ``nh`` chunks of rows (held in registers
+    over the l range, then in shared memory) and adds B[p] V. The first
+    variant whose tiles hold nao is taken (KDM_VARIANTS), and its panel
+    width first by the tensor cores' balance (a panel's n-tiles are split
+    over the four sub-partitions: it costs ceil(n-tiles / 4) steps), then
+    by the fewest panels (B[p] is read once per panel), then the
+    narrowest; ``groups`` fills the card at one density (groups * panels
+    >= sms); tensor copies (``tma``) where nao is even and its boxes fit
+    (16 <= nao <= 256), else cp.async; two tiles a job (``jt``: one
+    barrier per two tiles) where a ring of such jobs fits, else one; the
+    deepest ring that fits. ``padded_share``: the share of the DMMA work
+    issued on padding (16-row, 8-column and 16-deep tiles); ``sp_share``:
+    the issued work over what the busiest sub-partition's steps could
+    issue. Raises ValueError where no plan fits."""
+    if naux < 1 or not 1 <= nao <= 16 * KDM_VARIANTS["c"]["mt_max"] \
+            or sms < 1:
+        raise ValueError(f"k_dm_plan: naux {naux}, nao {nao}, sms {sms}")
+    return dict(_k_dm_plan(naux, nao, sms, smem_cap))
+
+
+def _k_dm_variant_plan(naux, nao, sms, smem_cap, var):
+    """The plan of one instantiation, or None where its tiles do not hold
+    nao or nothing fits. A panel costs ceil(its n-tiles / 4) steps of the
+    busiest sub-partition."""
+    mt, n8 = _cdiv(nao, 16), _cdiv(nao, 8)
+    if mt > var["mt_max"] or _cdiv(mt, 2) > var["mtk"]:
+        return None
+    nh = 1
+    while _cdiv(_cdiv(mt, nh), 2) > var["mtw"]:
+        nh += 1
+    panels = []
+    for nj in range(1, min(4 * var["nt"], n8) + 1):
+        npanel = _cdiv(n8, nj)
+        last = n8 - (npanel - 1) * nj
+        cost = (npanel - 1) * _cdiv(nj, 4) + _cdiv(last, 4)
+        panels.append((cost, npanel, nj))
+    for (cost, npanel, nj), jt, stages in itertools.product(
+            sorted(panels), KDM_JTS, KDM_STAGES):
+        smem = k_dm_smem_bytes(nao, nj, nh, jt, stages, var["d_res"])
+        if smem > smem_cap:
+            continue
+        rows = _cdiv(naux, min(naux, _cdiv(sms, npanel)))
+        issued = 2 * mt * n8 * mt * 4096
+        return {"variant": next(k for k, v in KDM_VARIANTS.items()
+                                if v is var),
+                "nj": nj, "npanel": npanel, "nh": nh, "jt": jt,
+                "stages": stages, "groups": _cdiv(naux, rows), "rows": rows,
+                "tma": int(nao % 2 == 0 and 16 <= nao <= 256),
+                "d_res": var["d_res"], "smem_bytes": smem,
+                "padded_share": 1.0 - 4.0 * nao ** 3 / issued,
+                "sp_share": n8 / (4.0 * cost)}
+    return None
+
+
+@functools.lru_cache(maxsize=256)
+def _k_dm_plan(naux, nao, sms, smem_cap):
+    for var in KDM_VARIANTS.values():
+        plan = _k_dm_variant_plan(naux, nao, sms, smem_cap, var)
+        if plan is not None:
+            return plan
+    raise ValueError(f"k_dm_plan: no plan for nao {nao} fits {smem_cap} "
+                     "bytes of shared memory")
+
+
+def k_dm_plan_ints(plan: dict) -> tuple:
+    """The plan as the integers df_k_dm.cu's C entry takes, in
+    KDM_PLAN_INTS order."""
+    return tuple(KDM_VARIANTS[plan["variant"]]["id"] if k == "variant"
+                 else plan[k] for k in KDM_PLAN_INTS)

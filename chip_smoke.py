@@ -184,7 +184,9 @@ Run from the root of a checkout. Phases, one printed line or more each:
 11. ``df_k_dm`` against its plain twin (its library call too) at phenol's
    B, phenol's B_lr (wB97X-D) and aspirin's factor, one density and a
    Davidson block of 12: f64 <= 1e-12 relative, repeats, a density alone
-   and a split batch bitwise equal; kernel / plain / bound times.
+   and a split batch bitwise equal; kernel / plain / bound times, the
+   launch plan (``ops/plan.py::k_dm_plan``), the share of its DMMA work
+   on padding, the achieved FP64 TFLOP/s and the share of the bound.
 
 12a. the analytic (CPHF) Hessian with dipoles
    (``cctpu_torch.hessian.cphf.analytic_hessian``) of phenol
@@ -219,7 +221,9 @@ workflows (10-10f) and its numbers at 10c's def2-TZVP factor, and
 ``df_k``'s numbers at B_lr (9), and its launches in the TDDFT phases
 (11a-11c) and in the analytic Hessians (12a-12c); ``df_k_dm``'s row has
 its launches in the TDDFT phases, the Hessians of 8d and of 12, its
-numbers at phenol's B with 12 densities and at every shape of phase 11.
+numbers at phenol's B with 12 densities (with the plan, padded share,
+TFLOP/s and share of the bound) and at every shape of phase 11, and the
+seconds of aspirin's TDDFT in K (11c) and of 12a's two CGs.
 A ``clock``
 line after each group of
 phases gives the seconds since the start. The last line is
@@ -2338,8 +2342,9 @@ def phase_k_dm(factors, batch=12):
     non-symmetric densities and with one, through
     ``ops/bench_k_dm.measure``: f64 <= 1e-12 relative, repeats bitwise
     equal, a density alone and the batch split in two calls bitwise equal
-    to the whole batch's; kernel / plain / bound times. Returns the
-    numbers by factor and batch."""
+    to the whole batch's; kernel / plain / bound times, the plan, its
+    padded share, the achieved TFLOP/s and the share of the bound.
+    Returns the numbers by factor and batch."""
     import torch
     from cctpu_torch.ops.bench_k_dm import measure
     out = {}
@@ -2455,7 +2460,8 @@ def phase_hessian_phenol(dev, mol):
     n = rec["launches"]
     check(n["df_j"] > 0 and n["df_k_dm"] > 0,
           f"phenol analytic Hessian launches {n}")
-    return {k: rec["launches"][k] + rec2["launches"][k] for k in n}
+    return ({k: rec["launches"][k] + rec2["launches"][k] for k in n},
+            [rec["cg_s"], rec2["cg_s"]])
 
 
 def phase_hessian_small(dev):
@@ -2664,6 +2670,7 @@ def main():
           f"a kernel of the uv path never ran in 11a-11c: {n_uv}")
     from cctpu_torch.dft.xc import get_functional
     omega = get_functional("wb97x-d").rsh[0]
+    asp_k_s = td_seconds(td_asp)["K_s"]
     k_dm = phase_k_dm({"phenol": td_df.mf._jk.B,
                        "phenol_b_lr": td_df.mf._jk.prepare_lr(omega)[0],
                        "aspirin": td_asp.mf._jk.B})
@@ -2671,7 +2678,7 @@ def main():
     torch.cuda.empty_cache()
     mark(t_start, "11")
 
-    n_h12 = phase_hessian_phenol(dev, phenol_opt)
+    n_h12, cg_s = phase_hessian_phenol(dev, phenol_opt)
     torch.cuda.empty_cache()
     mark(t_start, "12a")
     n = phase_hessian_small(dev)
@@ -2714,7 +2721,11 @@ def main():
                  "launches_hessian": n_hess["df_k_dm"],
                  "launches_hessian_analytic": n_h12["df_k_dm"],
                  **{k: main_k_dm[k] for k in keys if k != "launches"},
-                 "shapes": {name: {k: row[k] for k in cd_keys}
+                 **{k: main_k_dm[k] for k in ("plan", "padded_share",
+                                              "tflops", "bound_share")},
+                 "uv_aspirin_K_s": asp_k_s, "hessian_phenol_cg_s": cg_s,
+                 "shapes": {name: {k: row[k] for k in (
+                     *cd_keys, "tflops", "bound_share")}
                             for name, row in k_dm.items()}}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -134,19 +134,47 @@ def _check_j_k(dev, shape, dtype, tol):
     assert torch.count_nonzero(df_k.df_k_fast(B, zero)) == 0
 
 
+# per case of test_df_k_dm_matches_plain, the nao it also runs (as loops,
+# not ids): both sides of the tensor copies' lower edge (16), odd nao (the
+# cp.async route), both sides of each edge of ops/plan.py::k_dm_plan:
+# between its variants (nao 128 | 129, 224 | 225), between two tiles a job
+# and one (112 | 113, 208 | 209, 272 | 273), of the tensor copies' upper
+# edge (256 | 257, 258), and its widest nao; with 13 aux rows, fewer than
+# the plan's groups
+K_DM_NAO = {16: (15, 16, 17), 15: (15, 61, 111),
+            130: (110, 112, 113, 127, 128, 129, 130),
+            257: (208, 209, 224, 225, 255, 256, 257, 258, 272, 273, 384)}
+
+
 @pytest.mark.parametrize("naux,nao,nset", [(37, 16, 1), (61, 15, 3),
                                             (40, 130, 2), (13, 257, 5)])
-def test_df_k_dm_matches_plain(naux, nao, nset, dev):
+def test_df_k_dm_matches_plain(naux, nao, nset, dev, monkeypatch):
     """K of non-symmetric densities, with a B whose rows are not symmetric,
-    against the einsum (f64 <= 1e-12 relative); repeats and a density taken
-    alone bitwise equal to the batch's; an f32 call raises."""
+    against the einsum (f64 <= 1e-12 relative) at the case's nao and at
+    the plan edges of K_DM_NAO, with the case's batch and with 12
+    densities; repeats, a density taken alone, the batch split in two
+    calls and a batch the wrapper splits (a small ``WS_BUDGET_BYTES``)
+    bitwise equal to the whole batch's; an f32 call raises."""
     rng = np.random.default_rng(naux + nao)
-    B = torch.as_tensor(rng.standard_normal((naux, nao, nao)), device=dev)
-    D = torch.as_tensor(rng.standard_normal((nset, nao, nao)), device=dev)
-    K = df_k_dm.df_k_dm(B, D)
-    assert _rel(K, df_k_dm.df_k_dm_reference(B, D)) < 1e-12
-    assert torch.equal(K, df_k_dm.df_k_dm(B, D))
-    assert torch.equal(K[-1], df_k_dm.df_k_dm(B, D[-1]))
+    for n in K_DM_NAO[nao]:
+        B = torch.as_tensor(rng.standard_normal((naux, n, n)), device=dev)
+        D = torch.as_tensor(rng.standard_normal((12, n, n)), device=dev)
+        for ns in sorted({1, nset, 12}):
+            K = df_k_dm.df_k_dm(B, D[:ns])
+            assert _rel(K, df_k_dm.df_k_dm_reference(B, D[:ns])) < 1e-12
+            assert torch.equal(K, df_k_dm.df_k_dm(B, D[:ns]))
+            assert torch.equal(K[-1], df_k_dm.df_k_dm(B, D[ns - 1]))
+            if ns > 1:
+                h = max(1, ns // 3)
+                assert torch.equal(torch.cat([df_k_dm.df_k_dm(B, D[:h]),
+                                              df_k_dm.df_k_dm(B, D[h:ns])]),
+                                   K)
+        groups = df_k_dm.LAST_PLAN["groups"]
+        with monkeypatch.context() as m:
+            m.setattr(df_k_dm, "WS_BUDGET_BYTES", 5 * groups * n * n * 8)
+            before = df_k_dm.LAUNCHES
+            assert torch.equal(df_k_dm.df_k_dm(B, D), K)
+            assert df_k_dm.LAUNCHES == before + 3          # 5 + 5 + 2
     with pytest.raises(ValueError, match="float64"):
         df_k_dm.df_k_dm(B.float(), D.float())
 

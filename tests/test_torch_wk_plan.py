@@ -1,8 +1,11 @@
 """The launch plans of the DF kernels (cctpu_torch/ops/plan.py::wk_plan for
-the W/K kernels, ::j_plan for DF-J), the one part of them that runs
-without a card: every shape chip_smoke.py and tests/test_torch_gpu.py
-launch, both element sizes, with and without the fused Coulomb pass, one
-and two densities. Needs neither JAX nor a card."""
+the W/K kernels, ::j_plan for DF-J, ::k_dm_plan for the exchange of
+general densities), the one part of them that runs without a card: every
+shape chip_smoke.py and tests/test_torch_gpu.py launch, both element
+sizes, with and without the fused Coulomb pass, one and two densities;
+df_k_dm's plan at every nao it takes. Needs neither JAX nor a card."""
+
+import inspect
 
 import pytest
 import torch
@@ -30,6 +33,10 @@ J_SHAPES = [(naux, nao) for naux in (1, 20, 1671, 6038)
             for nao in (2, 15, 118, 119, 168, 169, 240, 241, 292, 293, 600)]
 J_CASES = [(naux, nao, nset, size) for naux, nao in J_SHAPES
            for nset in (1, 2) for size in (8, 4)]
+# df_k_dm: every nao it takes at one aux row, fewer rows than the plan's
+# groups, B_lr's, phenol's, aspirin's and C16H34's counts
+K_DM_CASES = [(naux, nao) for naux in (1, 7, 418, 1770, 2991, 6038)
+              for nao in range(1, 385)]
 
 
 def test_every_plan_fits_and_is_consistent():
@@ -40,6 +47,43 @@ def test_every_plan_fits_and_is_consistent():
         _check_plan(*case)
     for case in J_CASES:
         _check_j_plan(*case)
+    # df_k_dm's plan is not told the number of densities: nothing that
+    # sets the order of a density's sum can depend on the batch
+    assert "nset" not in inspect.signature(P.k_dm_plan).parameters
+    for case in K_DM_CASES:
+        _check_k_dm_plan(*case)
+
+
+def _check_k_dm_plan(naux, nao, sms=P.SMS_H100):
+    p = P.k_dm_plan(naux, nao, sms, CAP)
+    assert p == P.k_dm_plan(naux, nao, sms, CAP)              # pure
+    ints = P.k_dm_plan_ints(p)
+    assert len(ints) == len(P.KDM_PLAN_INTS) and all(
+        isinstance(v, int) for v in ints)
+    var = P.KDM_VARIANTS[p["variant"]]
+    # the shared memory the kernel will lay out, within the card's cap
+    assert p["smem_bytes"] == P.k_dm_smem_bytes(
+        nao, p["nj"], p["nh"], p["jt"], p["stages"], var["d_res"]) <= CAP
+    assert CAP == 232448
+    assert 2 <= p["stages"] <= 4 and p["d_res"] == var["d_res"]
+    assert p["jt"] in (1, 2)
+    # the groups cover every aux row once, also with fewer rows than sms
+    g, rows = p["groups"], p["rows"]
+    assert 1 <= g <= naux and (g - 1) * rows < naux <= g * rows
+    # the variant's register tiles hold the plan's: K's row tiles split
+    # over two warps, a V chunk's too, the panel's n-tiles over four
+    mt, n8 = -(-nao // 16), -(-nao // 8)
+    mc = -(-mt // p["nh"])
+    assert mt <= var["mt_max"] and -(-mt // 2) <= var["mtk"]
+    assert -(-mc // 2) <= var["mtw"] and (p["nh"] - 1) * mc < mt
+    assert 1 <= p["nj"] <= min(n8, 4 * var["nt"])
+    assert (p["npanel"] - 1) * p["nj"] < n8 <= p["npanel"] * p["nj"]
+    # tensor copies only where rows of B are 16-byte multiples (even nao)
+    # and the boxes fit
+    assert p["tma"] == int(nao % 2 == 0 and 16 <= nao <= 256)
+    assert 0.0 <= p["padded_share"] < 1.0 and 0.0 < p["sp_share"] <= 1.0
+    if nao in (110, 198):               # phenol's and aspirin's 6-31G*
+        assert p["padded_share"] < 0.15
 
 
 def _check_j_plan(naux, nao, nset, size, sms=P.SMS_H100):
@@ -180,3 +224,20 @@ def test_named_plans():
             "two_pass"
     with pytest.raises(ValueError, match="nset"):
         P.j_plan(100, 50, 3, 8, CAP)
+    # df_k_dm: phenol keeps D in shared memory, two panels of 7 n-tiles,
+    # 66 groups filling the card at one density, tensor copies; aspirin
+    # streams D, V in two chunks, four panels; an odd nao takes cp.async;
+    # a smaller cap gives a smaller plan or raises
+    p = P.k_dm_plan(1770, 110)
+    assert (p["variant"], p["d_res"], p["nj"], p["npanel"], p["nh"],
+            p["groups"], p["tma"]) == ("a", 1, 7, 2, 1, 66, 1)
+    p = P.k_dm_plan(2991, 198)
+    assert (p["variant"], p["d_res"], p["npanel"], p["nh"], p["groups"],
+            p["tma"]) == ("b", 0, 4, 2, 33, 1)
+    assert P.k_dm_plan(61, 15)["tma"] == 0
+    assert P.k_dm_plan(1770, 110, smem_cap=160 * 1024)["smem_bytes"] \
+        <= 160 * 1024
+    with pytest.raises(ValueError, match="no plan"):
+        P.k_dm_plan(1770, 384, smem_cap=64 * 1024)
+    with pytest.raises(ValueError, match="nao"):
+        P.k_dm_plan(100, 385)
