@@ -12,9 +12,10 @@ two-electron term of a density-fitted SCF is ``grad/df_grad.py``; that of
 an in-core or Cholesky SCF is the direct term, autograd of the exact
 E_2e through the quartet kernel (as in cctpu, a Cholesky SCF's gradient
 goes direct). A range-separated functional adds its long-range exchange
-term (the attenuated operator) on either route, and a dispersion
-correction its gradient by autograd. No CPHF is needed for SCF
-gradients.
+term (the attenuated operator) on either route, a dispersion
+correction its gradient by autograd, and a PCM solvent the derivative of
+E_solv at fixed D (``PCMModel.nuclear_gradient``). No CPHF is needed for
+SCF gradients.
 
 PyTorch runs one eager path, so cctpu's single traced ``scf_gradient`` and
 its platform dispatch (both there for a whole-program compiler) have no
@@ -44,10 +45,6 @@ def _energy_weighted_dm(mf) -> torch.Tensor:
 
 
 def _check_supported(mf):
-    if getattr(mf, "_pcm", None) is not None:
-        raise NotImplementedError(
-            "the PCM solvation gradient is not ported (ROADMAP.md queue 1 "
-            "item 14)")
     if mf.density_fit == "compressed":
         raise NotImplementedError(
             "the pair-compressed DF gradient is not ported (ROADMAP.md "
@@ -90,7 +87,8 @@ def gradient(mf, timer=None) -> torch.Tensor:
     each term: ``1e``, ``xc``, ``nuc`` and ``wz``, ``3c``, ``2c`` (DF) or
     ``2e`` (in-core, Cholesky); with a range-separated functional also
     ``3c_lr`` and ``2c_lr`` (DF) or ``2e_lr``, with a dispersion
-    correction ``disp``."""
+    correction ``disp``, with a solvent model (``solvent/pcm.py::PCM``)
+    ``pcm``."""
     _check_supported(mf)
     if mf.dm is None or mf.mo_coeff is None:
         raise ValueError("gradient needs a converged SCF: run kernel() "
@@ -117,6 +115,10 @@ def gradient(mf, timer=None) -> torch.Tensor:
     if func is not None and func.exc is not None:
         with phase(timer, "xc"):
             g = g + mf.exc_of_coords(mf.coords, dm)[1]
+    pcm = getattr(mf, "_pcm", None)
+    if pcm is not None:
+        with phase(timer, "pcm"):
+            g = g + pcm.nuclear_gradient(mf.coords, dm)
     if getattr(func, "dispersion", None):
         with phase(timer, "disp"):
             leaf = mf.coords.detach().requires_grad_(True)

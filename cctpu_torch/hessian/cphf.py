@@ -36,6 +36,13 @@ whole-molecule graph:
    per quartet centre), a double backward of the energy as a function of
    (D, X, M), and the second derivatives of X and M contracted with the
    energy's first derivatives W and Z per chunk.
+ - A PCM solvent's energy, quadratic in its surface potential V and not
+   a sum over chunks, is split as the DF energy is: dV/dR_k and the
+   derivatives of the potential integrals contracted with D0 and with the
+   solvent's weights u from one walk of their chunks
+   (``PCMModel.potential_derivatives``), then a double backward of the
+   cavity's small function of (V, R); its CPHF response is
+   ``PCMModel.response``.
  - The dipole derivatives (``with_dipole``): dmu/dR = mu_R - mu_kappa X.
 
 The DF energy whitens X by cctpu's eigh of the metric, the eigenvalues at
@@ -93,10 +100,6 @@ def df_dx_bytes(mf) -> int:
 
 
 def _check_supported(mf):
-    if getattr(mf, "_pcm", None) is not None:
-        raise NotImplementedError(
-            "the PCM solvation Hessian is not ported (ROADMAP.md queue 1 "
-            "item 14)")
     if mf.density_fit == "compressed":
         raise NotImplementedError(
             "the pair-compressed DF Hessian is not ported (ROADMAP.md "
@@ -485,10 +488,37 @@ def _direct_energies(mf, ax, rsh):
     return out
 
 
-def _response(jk, frame, D1, ax, rsh, fxc):
+def _pcm_term(mf, D0, dD):
+    """(F, dF, rho) of the solvation energy E(D, R) = e(W(D, R), R), e
+    the cavity's small function of the electrons' potential W on the
+    points (``PCMModel.energy_of_potential``) and W = -<v(R), D>: the
+    derivatives of the potential integrals from one walk of their chunks
+    (J = d<v, D0>/dR, G = sum_n u_n dv_n/dR, the second derivative of
+    sum_n u_n <v_n, D0>; u = de/dW), then a double backward of e along
+    (dW_k, e_k), dW_k = -J_k - <v, dD_k>."""
+    model, R0 = mf._pcm, mf.coords
+    W0, Dt0 = model._electron_potential(D0)
+    dDt = dD if D0.ndim == 2 else dD.sum(1)
+    Wl = W0.detach().requires_grad_(True)
+    with torch.enable_grad():
+        u, = torch.autograd.grad(model.energy_of_potential(Wl, R0), Wl)
+    J, G, Hw = model.potential_derivatives(R0, Dt0, u)
+    v = model.v_ints
+    dW = -J - torch.einsum("nij,kij->kn", v, dDt)
+    _, du, rho = _directional([model.energy_of_potential], W0, R0, dW)
+    F = -torch.einsum("n,nij->ij", u, v)
+    dF = -torch.einsum("kn,nij->kij", du, v) - G
+    rho = rho - du @ J.T - Hw - torch.einsum("lij,kij->kl", G, dDt)
+    if D0.ndim == 3:
+        F, dF = F.expand(D0.shape), dF[:, None].expand(dD.shape)
+    return F, dF, rho
+
+
+def _response(jk, frame, D1, ax, rsh, fxc, pcm=None):
     """G(D1): the second derivative of the SCF's energy in D along a
     batch D1 [m, *D0.shape] at fixed geometry, by the J/K builder (J, K,
-    K_lr of the batch) and the XC kernel ``fxc`` (``fxc_operator``)."""
+    K_lr of the batch), the XC kernel ``fxc`` (``fxc_operator``) and the
+    solvent model ``pcm`` (``PCMModel.response``)."""
     if frame.restricted:
         G = jk.j(D1)
         if ax:
@@ -505,6 +535,11 @@ def _response(jk, frame, D1, ax, rsh, fxc):
             G = G - rsh[2] * jk.k_lr(flat, rsh[0]).reshape(D1.shape)
     if fxc is not None:
         G = G + fxc(D1)
+    if pcm is not None:
+        if frame.restricted:
+            G = G + pcm.response(D1)
+        else:
+            G = G + pcm.response(D1.sum(1))[:, None]
     return G
 
 
@@ -524,10 +559,11 @@ def orbital_hessian(mf, frame=None):
     H0 = H0["T"] + H0["V"]
     F = H0 + mf.get_veff(frame.D0)[0]
     fxc = mf.fxc_operator(frame.D0) if has_xc else None
+    pcm = getattr(mf, "_pcm", None)
 
     def mv(V):
         Vt = V.T.contiguous()
-        G = _response(jk, frame, frame.d1(Vt), ax, rsh, fxc)
+        G = _response(jk, frame, frame.d1(Vt), ax, rsh, fxc, pcm)
         return (frame.d1_t(G) + frame.d2_hvp(F, Vt)).T
     return mv
 
@@ -565,15 +601,16 @@ def analytic_hessian(mf, cg_tol: float = 1e-8, cg_maxiter: int = 60,
                      timer=None, stats=None):
     """Cartesian Hessian [3N, 3N] (Ha/bohr^2, host numpy) of a converged
     RHF, RKS, UHF or UKS ``mf`` (density-fitted, in-core or Cholesky;
-    range-separated and dispersion-corrected functionals included), on
-    the SCF's device.
+    range-separated and dispersion-corrected functionals and a PCM solvent
+    included), on the SCF's device.
 
     ``with_dipole`` also returns dmu/dR [3N, 3] (a.u.) for IR intensities
     from the same CPHF solutions: dmu/dR = mu_R - mu_kappa X. ``timer``, a
     ``utils.profiling.PhaseTimer``, gets the phases ``transport``, ``1e``,
-    ``2e`` (DF or direct, long-range included), ``xc``, ``nuc``, ``cg`` and
-    ``dipole``; a dict ``stats`` gets the CG iterations per chunk, the
-    rotation's size and |H - H^T| before the final symmetrization."""
+    ``2e`` (DF or direct, long-range included), ``xc``, ``pcm`` (a PCM
+    solvent), ``nuc``, ``cg`` and ``dipole``; a dict ``stats`` gets the CG
+    iterations per chunk, the rotation's size and |H - H^T| before the
+    final symmetrization."""
     _check_supported(mf)
     mol = mf.mol
     R0 = mf.coords
@@ -617,6 +654,9 @@ def analytic_hessian(mf, cg_tol: float = 1e-8, cg_maxiter: int = 60,
                 [lambda D, R, k=k: mf.exc_chunk_at(D, R, k)
                  for k in range(nchunk)], D0, R0, dD,
                 per=max(1, _XC_ELEMS // (mol.nao * chunk))))
+    if getattr(mf, "_pcm", None) is not None:
+        with phase(timer, "pcm"):
+            terms.append(_pcm_term(mf, D0, dD))
     for Ft, dFt, rhot in terms:
         F, dF, rho = F + Ft, dF + dFt, rho + rhot
     del terms

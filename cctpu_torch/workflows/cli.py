@@ -1,8 +1,8 @@
 """`python -m cctpu_torch.workflows.cli <workflow> ...` — the dispatcher
 over the workflow CLIs. ``energy``, ``opt``, ``opt-freq``, ``ir``,
-``uv``, ``interaction``, ``reaction`` and ``bde`` are ported so far; the
-other names of cctpu's dispatcher are listed and say that they are not
-ported yet."""
+``uv``, ``interaction``, ``reaction``, ``bde`` and ``solvent`` are ported
+so far; the other names of cctpu's dispatcher are listed and say that they
+are not ported yet."""
 
 from __future__ import annotations
 
@@ -22,9 +22,11 @@ _WORKFLOWS = {
                  "reaction energetics"),
     "bde": ("cctpu_torch.workflows.calculate_bde",
             "bond dissociation energies"),
+    "solvent": ("cctpu_torch.workflows.calculate_solvent_effect",
+                "PCM solvation effects"),
 }
 # cctpu's other workflows, in ROADMAP.md queue 1 order
-_NOT_PORTED = ("solvent", "nmr", "casscf", "ms-pred")
+_NOT_PORTED = ("nmr", "casscf", "ms-pred")
 
 
 def main(argv=None):

@@ -193,8 +193,8 @@ CASES = {
     "mp2_nh2_incore": lambda: mp2(NH2, 1, False),
     "mp2_phenol_df": lambda: mp2(PHENOL, 0, True),
     # phase 10b
-    "bde_hydrazine_b3lyp_tier": lambda: bde("NN", "b3lyp", "6-31g*",
-                                            "b3lyp", None, 1),
+    "bde_hydrazine_hf_same": lambda: bde("NN", "hf", "sto-3g", "same",
+                                         None, 1),
     "bde_phenol_b3lyp": lambda: bde("Oc1ccccc1", "b3lyp", "6-31g*", "mmff",
                                     True, 2),
     # phase 10d (the CLI's defaults: B3LYP/6-31+G*, grid level 3)

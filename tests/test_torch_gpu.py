@@ -1,9 +1,9 @@
 """Tests of the port that need the card: the CUDA kernels (fused J+K, J,
 K, K of general densities) against their plain versions, the CUDA
-dispatch (launch or raise), and the in-core and Cholesky SCFs and the
-direct gradient on the card against the CPU. They skip without a CUDA
-device. This file imports neither JAX nor cctpu, so it also runs on a
-machine without them:
+dispatch (launch or raise), and the in-core and Cholesky SCFs, the
+direct gradient and a PCM SCF and gradient on the card against the CPU.
+They skip without a CUDA device. This file imports neither JAX nor
+cctpu, so it also runs on a machine without them:
 
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
 """
@@ -268,3 +268,28 @@ def test_direct_gradient_on_card(dev):
     g2 = gradient(mf)
     assert torch.equal(grads[1], g2)
     assert float((grads[1].cpu() - grads[0]).abs().max()) <= 1e-10
+
+
+def test_pcm_scf_and_gradient_on_card(dev):
+    """Water DF-B3LYP/STO-3G with IEF-PCM water on the card against the
+    same on the CPU: the energy within 1e-10 Ha, the gradient (its ``pcm``
+    term included) within 1e-9 Ha/bohr, the fused kernel every cycle on
+    the card."""
+    from cctpu_torch.dft.rks import RKS
+    from cctpu_torch.grad.scf_grad import gradient
+    from cctpu_torch.solvent.pcm import PCM
+    mol = Molecule.from_atoms(WATER, basis="sto-3g")
+    out = []
+    for d in ("cpu", dev):
+        mf = PCM(RKS(mol, xc="b3lyp", grid_level=1, density_fit=True,
+                     conv_tol=1e-12, conv_tol_grad=1e-9, device=d),
+                 solvent="water")
+        before = df_jk.LAUNCHES
+        e = mf.kernel()
+        assert mf.converged
+        out.append((e, gradient(mf).cpu(), df_jk.LAUNCHES - before,
+                    mf.n_cycles))
+    (e_cpu, g_cpu, _, _), (e, g, n, cycles) = out
+    assert mf._pcm.v_ints.is_cuda and n >= cycles
+    assert abs(e - e_cpu) <= 1e-10
+    assert float((g - g_cpu).abs().max()) <= 1e-9
