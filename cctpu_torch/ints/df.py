@@ -197,15 +197,18 @@ def walk_2c2e(aux: BasisSet, coords, budget: int = CHUNK_BUDGET):
 
 
 def build_3c2e(basis: BasisSet, aux: BasisSet, coords,
-               omega: Optional[float] = None) -> torch.Tensor:
+               omega: Optional[float] = None,
+               budget: int = CHUNK_BUDGET) -> torch.Tensor:
     """(P|ab) tensor [naux, nao, nao] on ``coords``' device: the blocks of
-    ``walk_3c2e``'s chunks and their ab<->ba mirrors, scattered; of the
-    erf-attenuated operator with ``omega`` (on the Coulomb operator's
-    Schwarz selection, as cctpu: the attenuated integrals are smaller)."""
+    ``walk_3c2e``'s chunks (at ``budget``) and their ab<->ba mirrors,
+    scattered; of the erf-attenuated operator with ``omega`` (on the
+    Coulomb operator's Schwarz selection, as cctpu: the attenuated
+    integrals are smaller)."""
     naux, nao = aux.nao, basis.nao
     out = torch.zeros((naux, nao, nao), dtype=coords.dtype,
                       device=coords.device)
-    for ls, args, (P_, A_, B_), _ in walk_3c2e(basis, aux, coords):
+    for ls, args, (P_, A_, B_), _ in walk_3c2e(basis, aux, coords,
+                                               budget=budget):
         blocks = eri_quartet_kernel(ls, *args(coords), omega=omega)[:, :, 0]
         out[P_, A_, B_] = blocks
         out[P_, B_.transpose(2, 3), A_.transpose(2, 3)] = \

@@ -83,6 +83,27 @@ def eri_quartet_kernel(ls: Tuple[int, int, int, int],
     ``omega`` the operator is the attenuated erf(omega r)/r of the
     range-separated functionals: with s = omega^2/(alpha + omega^2), R is
     evaluated at s*alpha and the prefactor scaled by sqrt(s)."""
+    return quartet_to_sph(eri_quartet_cart(ls, eA, cA, A, eB, cB, B,
+                                           eC, cC, C, eD, cD, D, omega),
+                          ls)
+
+
+def quartet_to_sph(cart, ls):
+    """Cartesian quartet blocks [..., ncA, ncB, ncC, ncD] to spherical
+    [..., nsA, nsB, nsC, nsD]."""
+    la, lb, lc, ld = ls
+    x = torch.einsum("pa,...abcd->...pbcd", c2s(la, cart), cart)
+    x = torch.einsum("qb,...pbcd->...pqcd", c2s(lb, cart), x)
+    x = torch.einsum("rc,...pqcd->...pqrd", c2s(lc, cart), x)
+    return torch.einsum("sd,...pqrd->...pqrs", c2s(ld, cart), x)
+
+
+def eri_quartet_cart(ls: Tuple[int, int, int, int],
+                     eA, cA, A, eB, cB, B, eC, cC, C, eD, cD, D,
+                     omega: Optional[float] = None):
+    """Contracted cartesian ERI blocks [..., ncA, ncB, ncC, ncD] of
+    ``eri_quartet_kernel`` (its arguments), before the spherical
+    transformation."""
     la, lb, lc, ld = ls
     lab, lcd = la + lb, lc + ld
     dev, dt = eA.device, eA.dtype
@@ -121,11 +142,7 @@ def eri_quartet_kernel(ls: Tuple[int, int, int, int],
 
     tmp = torch.einsum("...kqxy,...qcy->...kxc", Rbig, Ek)  # [.,Kab,T1,ncd]
     cart = torch.einsum("...kax,...kxc->...ac", Eb, tmp)     # [..., nab, ncd]
-    cart = cart.reshape(*batch, ncart(la), ncart(lb), ncart(lc), ncart(ld))
-    x = torch.einsum("pa,...abcd->...pbcd", c2s(la, cart), cart)
-    x = torch.einsum("qb,...pbcd->...pqcd", c2s(lb, cart), x)
-    x = torch.einsum("rc,...pqcd->...pqrd", c2s(lc, cart), x)
-    return torch.einsum("sd,...pqrd->...pqrs", c2s(ld, cart), x)
+    return cart.reshape(*batch, ncart(la), ncart(lb), ncart(lc), ncart(ld))
 
 
 # element budget of a kernel call's largest intermediate (256 MB in f64)

@@ -58,10 +58,18 @@ class TDDFT:
         self.ax = 1.0 if func is None else func.hyb
         self.rsh = None if func is None else func.rsh
         self.has_xc = func is not None and func.exc is not None
-        self.fxc = mf.fxc_operator(mf.dm) if self.has_xc else None
+        self._fxc = None
         self.jk = mf.get_jk_builder()
         if self.rsh is not None:
             self.jk.prepare_lr(self.rsh[0])
+
+    def fxc(self, P):
+        """The XC kernel's action on a batch of densities P
+        (``dft/rks.py::fxc_operator`` at the SCF's density), built on the
+        first call: (A-B) alone never needs it."""
+        if self._fxc is None:
+            self._fxc = self.mf.fxc_operator(self.mf.dm)
+        return self._fxc(P)
 
     def _v_ao(self, P, mode, singlet):
         """The AO-basis response of a batch of transition densities P

@@ -1,8 +1,8 @@
 """`python -m cctpu_torch.workflows.cli <workflow> ...` — the dispatcher
 over the workflow CLIs. ``energy``, ``opt``, ``opt-freq``, ``ir``,
-``uv``, ``interaction``, ``reaction``, ``bde`` and ``solvent`` are ported
-so far; the other names of cctpu's dispatcher are listed and say that they
-are not ported yet."""
+``uv``, ``nmr``, ``interaction``, ``reaction``, ``bde`` and ``solvent``
+are ported so far; the other names of cctpu's dispatcher are listed and
+say that they are not ported yet."""
 
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ _WORKFLOWS = {
     "ir": ("cctpu_torch.workflows.calculate_ir_spectrum", "IR spectrum"),
     "uv": ("cctpu_torch.workflows.calculate_uv_spectrum",
            "TDDFT UV-Vis spectrum"),
+    "nmr": ("cctpu_torch.workflows.calculate_nmr", "NMR chemical shifts"),
     "interaction": ("cctpu_torch.workflows.calculate_interaction",
                     "intermolecular interaction + BSSE"),
     "reaction": ("cctpu_torch.workflows.calculate_reaction_energy",
@@ -26,7 +27,7 @@ _WORKFLOWS = {
                 "PCM solvation effects"),
 }
 # cctpu's other workflows, in ROADMAP.md queue 1 order
-_NOT_PORTED = ("nmr", "casscf", "ms-pred")
+_NOT_PORTED = ("casscf", "ms-pred")
 
 
 def main(argv=None):

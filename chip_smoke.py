@@ -194,12 +194,12 @@ Run from the root of a checkout. Phases, one printed line or more each:
    geometry, two calls bitwise equal: the wall time split into L_RR/L_kR,
    CG and dipole, the CG iterations, each kernel's launches (``df_j`` and
    ``df_k_dm`` in the CG), the peak memory, |H - H^T| before the
-   symmetrization (<= 1e-5), three columns against central differences of
+   symmetrization (<= 1e-5), one column against central differences of
    the port's gradients (h = 1e-3 bohr, <= 1e-4 Ha/bohr^2), no imaginary
    mode, its dX/dR within ``cphf.DF_DX_BYTES_MAX`` (``hessian_auto``'s
    analytic route);
-12b. NH2 DF-UB3LYP/6-31G* at 8b's optimized geometry against the port's
-   whole FD Hessian (<= 1e-4, frequencies <= 1 cm^-1);
+12b. NH2 DF-UB3LYP/6-31G* at 8b's optimized geometry (the whole
+   unrestricted Hessian) against four of the port's FD columns (<= 1e-4);
 12c. water DF-CAM-B3LYP/6-31G* at 8's optimized geometry (K_lr on B_lr
    in the CG, the long-range DF terms) against one of the port's FD
    columns (O z; <= 1e-4).
@@ -221,8 +221,28 @@ Run from the root of a checkout. Phases, one printed line or more each:
    (``df_j`` every cycle, ``df_k`` twice);
 13e. ``hessian_auto`` on water DF-B3LYP/6-31G* with PCM at phase 6's
    geometry: the analytic route (``df_j`` and ``df_k_dm`` in its CG)
-   against the port's whole FD Hessian of PCM gradients (h = 1e-4 bohr;
-   <= 1e-4, frequencies <= 1 cm^-1).
+   against two of the port's FD columns of PCM gradients (h = 1e-4 bohr;
+   <= 1e-4).
+
+14a. phenol DF-B3LYP/6-31G* (grid level 2, conv_tol 1e-12, orbital
+   gradient <= 1e-8) GIAO shieldings (``cctpu_torch.response.giao_nmr``):
+   the wall time split into 1e integrals, 2e skeleton, XC skeleton, CG
+   (its iterations per field direction) and assembly, ``df_k_dm``
+   launches (the CPHF's matvecs), peak memory; against cctpu's CPU-f64
+   shieldings where ``NMR_ORACLES`` holds them, else by translation
+   invariance (cctpu's CPU run of phenol died of XLA's memory maps; <=
+   1e-4 ppm);
+14b. water DF-B3LYP, DF-CAM-B3LYP (``df_k_dm`` on B_lr; and its
+   translation invariance), DF-M06-2X and NH2 DF-UB3LYP (``df_j``/``df_k``
+   in its SCF), 6-31G*, against cctpu's shieldings (<= 1e-4 ppm);
+14c. ``nmr --smiles Oc1ccccc1 --skip-opt`` at its defaults (B3LYP/
+   6-311G**, DF by size), the TMS reference computed on the card into a
+   fresh memo: rc 0, a sigma and a delta for every H and C, the memo under
+   the port's name, the wall time split into SCF, GIAO and TMS, launches,
+   peak memory (no oracle: cctpu's CPU cost is out of reach);
+14d. ``nmr --smiles C --method hf --basis sto-3g`` (in core) with its
+   optimization and its computed TMS reference: sigma, sigma_ref and
+   delta against cctpu's CLI on the same coordinates (<= 1e-4 ppm).
 
 The oracles of 8, 8b and 8d (``OPT_ORACLES``) come from
 ``python scripts/make_opt_oracles.py <case>``, those of 9a-9e
@@ -231,7 +251,8 @@ those of 10-10f (``WORKFLOW_ORACLES``) from
 ``python scripts/make_workflow_oracles.py <case>``, those of 11a-11b
 (``UV_ORACLES``) from ``python scripts/make_uv_oracles.py <case>``,
 those of 13a-13d (``PCM_ORACLES``) from
-``python scripts/make_pcm_oracles.py <case>``.
+``python scripts/make_pcm_oracles.py <case>``, those of 14a-14d
+(``NMR_ORACLES``) from ``python scripts/make_nmr_oracles.py <case>``.
 
 Any failure raises: the script then exits non-zero without its last line.
 The line before the last lists each kernel with its launches on the main
@@ -241,10 +262,10 @@ factor, its launches in the optimizations (8-8c), the FD Hessian (8d)
 and the range-separated SCFs (9a, 9c-9e), its launches in the
 workflows (10-10f) and its numbers at 10c's def2-TZVP factor, and
 ``df_k``'s numbers at B_lr (9), and its launches in the TDDFT phases
-(11a-11c), in the analytic Hessians (12a-12c) and in the solvent
-phases (13a-13e); ``df_k_dm``'s row has
+(11a-11c), in the analytic Hessians (12a-12c), in the solvent
+phases (13a-13e) and in the NMR phases (14a-14d); ``df_k_dm``'s row has
 its launches in the TDDFT phases, the Hessians of 8d and of 12, the
-solvent phases, its
+solvent and the NMR phases, its
 numbers at phenol's B with 12 densities (with the plan, padded share,
 TFLOP/s and share of the bound) and at every shape of phase 11, and the
 seconds of aspirin's TDDFT in K (11c) and of 12a's two CGs.
@@ -847,6 +868,99 @@ PCM_ORACLES = {
                   -76.41074908803182],
     },
 }
+
+# cctpu's CPU-f64 NMR results (scripts/make_nmr_oracles.py <case>): GIAO
+# shielding tensors (ppm, one row of 9 per atom) of phases 14a-14b's SCFs,
+# and its ``nmr`` CLI on methane (14d)
+NMR_ORACLES = {
+    "card_nh2_ub3lyp": {
+        "E": -55.87099329938427,
+        "giao": [
+            [250.87121152127224, 1.9713529723693768e-13,
+             -1.358171199526118e-13, -9.988563776667963e-13,
+             -794.4837343482372, 1.1545430164793405e-12,
+             -1.6921621295276197e-15, 3.423006538966813e-13,
+             -69.78117517608423],
+            [28.14260551866469, -7.329660673012696e-12,
+             9.287690819241752e-12, 4.53896429112596e-12,
+             -2.9256120657831985, -19.22716280678464,
+             -1.8389239395991726e-13, -2.2508822807197273, 24.992478142193118],
+            [28.14260551867905, -7.093390274204798e-12,
+             -8.997864858449797e-12, 4.740229849648886e-12,
+             -2.9256120657836457, 19.22716280678392, -8.593699220451438e-15,
+             2.250882280719029, 24.99247814219221],
+        ],
+    },
+    "card_water_b3lyp": {
+        "E": -76.40680895083187,
+        "giao": [
+            [301.56940761955, -6.026040330047356e-13, 2.43382616305045e-13,
+             1.9002628142369992e-13, 350.6354711750296,
+             1.267403851426924e-12, 1.5162686964316037e-13,
+             -4.115021050774535e-13, 319.93423796225085],
+            [25.50824214009328, -9.446984394493414e-15,
+             1.0311766021062245e-14, -9.046824441795533e-12,
+             39.66738982987995, -6.485063354448509, -3.422930699815582e-12,
+             -8.819595085817124, 31.91856033134697],
+            [25.50824214009399, 1.0128553637614925e-13,
+             -1.0674139296736943e-13, -3.945395100581284e-12,
+             39.667389829879696, 6.4850633544489575, 1.3323395169702275e-12,
+             8.819595085817124, 31.91856033134706],
+        ],
+    },
+    "card_water_camb3lyp": {
+        "E": -76.41520246399878,
+        "giao": [
+            [305.0484143625963, -6.304074821523979e-13,
+             2.468299571304498e-13, -1.2907754676088264e-13,
+             353.71575522920284, 1.1794153551817239e-12,
+             1.2137118475759009e-13, -3.689512377987708e-13,
+             322.30142491641607],
+            [25.347466950725167, 3.84119089134878e-14, 7.427180500481876e-14,
+             2.6889431324660183e-13, 39.57998570229518, -6.695155064174096,
+             -2.1344919929037876e-11, -8.900025679332428, 31.82887269849487],
+            [25.347466950726954, 7.983037705109076e-14,
+             -6.935681828284522e-14, -3.168259271692615e-13,
+             39.57998570229524, 6.6951550641741, 2.015108663821344e-11,
+             8.900025679329753, 31.828872698498373],
+        ],
+    },
+    "card_water_m062x": {
+        "E": -76.37212643113504,
+        "giao": [
+            [293.03175732104705, -6.108818896163422e-13,
+             2.07500581605934e-13, 2.317222900615115e-13, 345.0640986763226,
+             1.4354942109861601e-12, 6.673573323680177e-14,
+             -1.0058632425091042e-13, 307.51942464135067],
+            [25.603241710624037, 1.9954150157482409e-13,
+             2.759035097461079e-13, -3.0089848304383506e-12,
+             39.68330501540622, -6.399579164561324, -3.4421961996786293e-12,
+             -8.532575305230603, 31.893690512319335],
+            [25.603241710621777, 2.291644510391415e-13,
+             -2.625736655776197e-13, -1.0571909015049414e-11,
+             39.68330501540788, 6.399579164559285, 4.722706473679637e-12,
+             8.53257530523117, 31.893690512318685],
+        ],
+    },
+    "cli_methane": {
+        "sigma": [236.18309147528464, 32.860714483447545, 32.86071448377199,
+                  32.86071448321577, 32.86071448339963],
+        "ref_H": 33.38386403157914,
+        "ref_C": 244.4602912051525,
+        "delta": [8.277199729867846, 0.5231495481315918, 0.5231495478071437,
+                  0.5231495483633637, 0.5231495481795037],
+        "opt_energies": [-39.726278420412754, -39.726863351993565,
+                         -39.72686367954746],
+        "opt_coords": [
+            [0.5339978863625127, -0.8662968544383772, -1.0616168350857798],
+            [1.400238152274779, -1.8015676904716522, 0.5394342845234452],
+            [1.8968784290129657, -0.7113425263977615, -2.580502678479698],
+            [-1.0767072563151925, -1.956245903310379, -1.6988832133667877],
+            [-0.08441777904040003, 1.0039687026364916, -0.5065157331038462],
+        ],
+    },
+}
+
 
 def water_key(xc: str) -> str:
     """The ``RSH_ORACLES`` key of water's DF energy with ``xc``."""
@@ -2545,18 +2659,20 @@ def hessian_run(mf, dev):
         "peak_mem_GB": torch.cuda.max_memory_allocated(dev) / 1e9}
 
 
-def fd_hessian_columns(mf, comps, opts, h=1e-3):
+def fd_hessian_columns(mf, comps, opts, h=1e-3, factory=None):
     """Rows 3 atom + axis of the Hessian by central differences of the
-    port's gradients: SCFs of ``mf``'s kind with ``opts`` at +-h bohr along
-    each of ``comps`` [(atom, axis)], warm started from ``mf.dm``."""
+    port's gradients: SCFs of ``mf``'s kind with ``opts`` (or
+    ``factory(mol)``) at +-h bohr along each of ``comps`` [(atom, axis)],
+    warm started from ``mf.dm``."""
     from cctpu_torch.grad.scf_grad import gradient
+    make = factory or (lambda m: type(mf)(m, device=mf.device, **opts))
     out = {}
     for ia, ax in comps:
         g = []
         for sgn in (1.0, -1.0):
             c = mf.mol.coords.copy()
             c[ia, ax] += sgn * h
-            m2 = type(mf)(mf.mol.with_coords(c), device=mf.device, **opts)
+            m2 = make(mf.mol.with_coords(c))
             m2.kernel(dm0=mf.dm)
             check(m2.converged, f"FD SCF at {ia},{ax} did not converge")
             g.append(gradient(m2).cpu().numpy().ravel())
@@ -2569,7 +2685,7 @@ def phase_hessian_phenol(dev, mol):
     conv_tol 1e-12) at phase 8c's optimized geometry, twice: bitwise
     equal, |H - H^T| before the symmetrization, the wall time split into
     L_RR/L_kR, CG and dipole, the CG iterations, the launches of each
-    kernel, the peak memory; three columns against central differences of
+    kernel, the peak memory; one column against central differences of
     the port's gradients (<= ``FD_HESSIAN_TOL``); no imaginary mode."""
     from cctpu_torch.dft.rks import RKS
     from cctpu_torch.hessian.frequencies import harmonic_analysis
@@ -2581,9 +2697,9 @@ def phase_hessian_phenol(dev, mol):
     runs = [hessian_run(mf, dev) for _ in range(2)]
     (H, dmu, rec), (H2, dmu2, rec2) = runs
     bitwise = bool(np.array_equal(H, H2) and np.array_equal(dmu, dmu2))
-    # O y, the hydroxyl H x, C1 y (phase 3e's components)
+    # O y (one of phase 3e's components, for the script's time limit)
     t0 = time.time()
-    cols = fd_hessian_columns(mf, [(6, 1), (7, 0), (0, 1)], HESSIAN_SCF)
+    cols = fd_hessian_columns(mf, [(6, 1)], HESSIAN_SCF)
     dcol = max(float(np.abs(H[k] - c).max()) for k, c in cols.items())
     ha = harmonic_analysis(mol, H, dmu)
     from cctpu_torch.hessian import cphf
@@ -2612,16 +2728,16 @@ def phase_hessian_phenol(dev, mol):
 
 
 def phase_hessian_small(dev):
-    """12b-c. NH2 DF-UB3LYP/6-31G* at 8b's optimized geometry against the
-    port's whole FD Hessian with dipoles (``hessian_fd``); water
-    DF-CAM-B3LYP/6-31G* at 8's optimized geometry (K_lr's response and the
-    long-range terms) against one of the port's FD columns: <=
-    ``FD_HESSIAN_TOL``; NH2's frequencies <= 1 cm^-1."""
+    """12b-c. NH2 DF-UB3LYP/6-31G* at 8b's optimized geometry (the whole
+    unrestricted analytic Hessian with dipoles) against four of the port's
+    FD columns, N y and z, H y and z (8 of the whole FD Hessian's 18 SCFs,
+    for the script's time limit); water DF-CAM-B3LYP/6-31G* at 8's
+    optimized geometry (K_lr's response and the long-range terms) against
+    one of the port's FD columns: <= ``FD_HESSIAN_TOL``."""
     from cctpu_torch.core.molecule import Molecule
     from cctpu_torch.dft.rks import RKS, UKS
-    from cctpu_torch.hessian.frequencies import harmonic_analysis, hessian_fd
+    from cctpu_torch.hessian.frequencies import harmonic_analysis
     n_all = {}
-    # NH2: the whole FD Hessian
     mol = Molecule.from_atoms(NH2_START, spin=1, basis="6-31g*").with_coords(
         np.asarray(OPT_ORACLES["nh2_ub3lyp"]["coords"]))
     mf = UKS(mol, device=dev, **HESSIAN_SCF)
@@ -2630,18 +2746,17 @@ def phase_hessian_small(dev):
     H, dmu, rec = hessian_run(mf, dev)
     n_all = dict(rec["launches"])
     t0 = time.time()
-    Hf, dmuf = hessian_fd(lambda m: UKS(m, device=dev, **HESSIAN_SCF), mol,
-                          dm0=mf.dm)
-    ha, hf = harmonic_analysis(mol, H, dmu), harmonic_analysis(mol, Hf, dmuf)
-    res = {"max_abs_dH_vs_port_fd": float(np.abs(H - Hf).max()),
-           "max_abs_ddmu_vs_port_fd": float(np.abs(dmu - dmuf).max()),
-           "max_abs_dfreq_vs_port_fd": float(np.abs(
-               ha.freq_wavenumber - hf.freq_wavenumber).max())}
+    # the molecule lies in x = 0
+    cols = fd_hessian_columns(mf, [(0, 1), (0, 2), (1, 1), (1, 2)],
+                              HESSIAN_SCF)
+    ha = harmonic_analysis(mol, H, dmu)
+    res = {"max_abs_dH_vs_port_fd_columns": max(
+        float(np.abs(H[k] - c).max()) for k, c in cols.items())}
     emit({"phase": "hessian_nh2_ub3lyp", **rec, "fd_s": time.time() - t0,
-          "freq_cm": ha.freq_wavenumber.tolist(), **res})
-    check(res["max_abs_dH_vs_port_fd"] <= FD_HESSIAN_TOL
-          and res["max_abs_dfreq_vs_port_fd"] <= 1.0,
-          f"NH2 analytic Hessian off the port's FD: {res}")
+          "freq_cm": ha.freq_wavenumber.tolist(),
+          "n_imaginary": ha.n_imaginary, **res})
+    check(res["max_abs_dH_vs_port_fd_columns"] <= FD_HESSIAN_TOL,
+          f"NH2 analytic Hessian off the port's FD columns: {res}")
     # water CAM-B3LYP: FD columns
     mol = Molecule.from_atoms(WATER_START, basis="6-31g*").with_coords(
         np.asarray(OPT_ORACLES["water_b3lyp"]["coords"]))
@@ -2801,18 +2916,17 @@ def phase_solvent_nh2(dev):
 def phase_solvent_hessian(dev):
     """13e. ``hessian_auto`` on water DF-B3LYP/6-31G* with IEF-PCM water
     at phase 6's geometry takes the analytic route (its log line);
-    against the port's whole FD Hessian of PCM gradients
-    (``PCM_FD_STEP``, SCFs to an orbital gradient <= 1e-10):
-    <= ``FD_HESSIAN_TOL``, frequencies <= 1 cm^-1; ``df_j`` and
-    ``df_k_dm`` in its CG. (At 8's optimized geometry the FD Hessian
+    against two columns of the port's FD Hessian of PCM gradients, O z and
+    H y (``PCM_FD_STEP``, SCFs to an orbital gradient <= 1e-10; 4 of the
+    whole FD Hessian's 18 SCFs, for the script's time limit): <=
+    ``FD_HESSIAN_TOL``; ``df_j`` and ``df_k_dm`` in its CG. (At 8's optimized geometry the FD Hessian
     converges to the analytic one as C h^2 with C = 2.1e5 Ha/bohr^4: two
     exposed points of the O and H spheres lie 0.072 bohr apart there; see
     ``PCM_FD_STEP``.)"""
     from cctpu_torch.core.molecule import Molecule
     from cctpu_torch.dft.rks import RKS
     from cctpu_torch.hessian.frequencies import harmonic_analysis, \
-        hessian_auto, hessian_fd
-    from cctpu_torch.utils.profiling import PhaseTimer
+        hessian_auto
     mol = Molecule.from_atoms(WATER, basis="6-31g*")
     opts = {**HESSIAN_SCF, "conv_tol_grad": 1e-10}
 
@@ -2828,23 +2942,238 @@ def phase_solvent_hessian(dev):
     wall = time.time() - t0
     n = counts()
     t0 = time.time()
-    Hf, dmuf = hessian_fd(factory, mol, dm0=mf.dm, step=PCM_FD_STEP)
-    ha, hf = harmonic_analysis(mol, H, dmu), harmonic_analysis(mol, Hf, dmuf)
-    res = {"max_abs_dH_vs_port_fd": float(np.abs(H - Hf).max()),
-           "max_abs_ddmu_vs_port_fd": float(np.abs(dmu - dmuf).max()),
-           "max_abs_dfreq_vs_port_fd": float(np.abs(
-               ha.freq_wavenumber - hf.freq_wavenumber).max())}
+    # O z and H y (the molecule lies in x = 0; two columns of the whole FD
+    # Hessian, for the script's time limit)
+    cols = fd_hessian_columns(mf, [(0, 2), (1, 1)], None, h=PCM_FD_STEP,
+                              factory=factory)
+    ha = harmonic_analysis(mol, H, dmu)
+    res = {"max_abs_dH_vs_port_fd_columns": max(
+        float(np.abs(H[k] - c).max()) for k, c in cols.items())}
     emit({"phase": "solvent_hessian_water_b3lyp", "log": log,
           "analytic_s": wall, "fd_s": time.time() - t0, "launches": n,
-          "freq_cm": ha.freq_wavenumber.tolist(), **res})
+          "freq_cm": ha.freq_wavenumber.tolist(),
+          "n_imaginary": ha.n_imaginary, **res})
     check(log == ["  Hessian: analytic (AD-native CPHF)"],
           f"hessian_auto did not take the analytic route: {log}")
-    check(res["max_abs_dH_vs_port_fd"] <= FD_HESSIAN_TOL
-          and res["max_abs_dfreq_vs_port_fd"] <= 1.0,
-          f"water PCM analytic Hessian off the port's FD: {res}")
+    check(res["max_abs_dH_vs_port_fd_columns"] <= FD_HESSIAN_TOL,
+          f"water PCM analytic Hessian off the port's FD columns: {res}")
     check(n["df_j"] > 0 and n["df_k_dm"] > 0,
           f"water PCM analytic Hessian launches {n}")
     return n
+
+
+# ---------------------------------------------------------------------------
+# 14: NMR shieldings (GIAO) and the nmr CLI
+# ---------------------------------------------------------------------------
+
+NMR_SCF = dict(xc="b3lyp", conv_tol=1e-12, conv_tol_grad=1e-9,
+               max_cycle=200)
+# 14a-14b's bound on |sigma - sigma_cctpu| (ppm) and on the shift of the
+# shieldings under a translation (cctpu's own gate)
+NMR_TOL_PPM = 1e-4
+NMR_SHIFT_BOHR = (0.8, 1.6, -1.1)
+
+
+def shifted(atoms: str, by_bohr) -> str:
+    """``atoms`` (Angstrom) moved by the vector ``by_bohr``."""
+    from cctpu_torch.core.constants import BOHR
+    out = []
+    for item in atoms.split(";"):
+        sym, *xyz = item.split()
+        out.append(" ".join([sym] + [f"{float(x) + d * BOHR:.10f}"
+                                     for x, d in zip(xyz, by_bohr)]))
+    return "; ".join(out)
+
+
+def giao_run(mf, dev):
+    """One ``GIAONMR(mf).kernel()``, the kernels' launch counts reset just
+    before and read just after: (shielding [natm, 3, 3] ppm, record of the
+    wall time, its split into 1e, 2e skeleton, XC skeleton, CG and
+    assembly, the CG's iterations per field direction, launches and peak
+    memory)."""
+    import torch
+    from cctpu_torch.response.giao_nmr import GIAONMR
+    from cctpu_torch.utils.profiling import PhaseTimer
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    timer = PhaseTimer(dev)
+    nmr = GIAONMR(mf, timer=timer)
+    reset_counts()
+    t0 = time.time()
+    sig = nmr.kernel()
+    torch.cuda.synchronize(dev)
+    return sig, {"giao_s": time.time() - t0, "phases_s": timer.phases,
+                 "cg_iterations": nmr.stats["cg_iterations"],
+                 "launches": counts(),
+                 "peak_mem_GB": torch.cuda.max_memory_allocated(dev) / 1e9}
+
+
+def nmr_case(tag, cls, atoms, dev, spin=0, xc="b3lyp", shift=None,
+             **scf_kw):
+    """14a-b. An SCF (6-31G*, DF, grid level 2) and its GIAO shieldings
+    against ``NMR_ORACLES[tag]`` where it holds one (<= ``NMR_TOL_PPM``),
+    and, with ``shift``, the same at the molecule moved by it (<=
+    ``NMR_TOL_PPM``); the record's launch counts are the GIAO's."""
+    opts = {**NMR_SCF, "xc": xc, **scf_kw}
+    mf, e, info = run_scf(cls, atoms, dev, spin=spin, **opts)
+    check(mf.converged, f"{tag}: the SCF did not converge")
+    sig, rec = giao_run(mf, dev)
+    iso = np.trace(sig, axis1=1, axis2=2) / 3
+    res = {"phase": tag, "card": card_line(), "E": e,
+           "scf_s": info["scf_s"], "scf_launches": info["launches"], **rec,
+           "sigma_iso": iso.tolist()}
+    orc = NMR_ORACLES.get(tag)
+    if orc is None:
+        res["vs_cctpu"] = ("no oracle: cctpu's CPU process died of XLA's "
+                           "memory maps (scripts/make_nmr_oracles.py)")
+    else:
+        res["abs_dE_vs_cctpu"] = abs(e - orc["E"])
+        res["max_abs_dsigma_vs_cctpu"] = float(np.abs(
+            sig.reshape(-1, 9) - np.asarray(orc["giao"])).max())
+    if shift is not None:
+        mf2, _, _ = run_scf(cls, shifted(atoms, shift), dev, spin=spin,
+                            dm0=mf.dm, **opts)
+        sig2, rec2 = giao_run(mf2, dev)
+        res["max_abs_dsigma_shifted"] = float(np.abs(sig2 - sig).max())
+        res["giao_s_shifted"] = rec2["giao_s"]
+        rec["launches"] = {k: rec["launches"][k] + rec2["launches"][k]
+                           for k in rec["launches"]}
+    emit(res)
+    check(np.isfinite(sig).all() and sig.shape == (mf.mol.natm, 3, 3),
+          f"{tag}: shielding not finite or of the wrong shape")
+    for k in ("max_abs_dsigma_vs_cctpu", "max_abs_dsigma_shifted"):
+        check(res.get(k, 0.0) <= NMR_TOL_PPM,
+              f"{tag}: {k} {res.get(k, 0.0):.2e} > {NMR_TOL_PPM} ppm")
+    check(rec["launches"]["df_k_dm"] > 0 or not mf.func.hyb,
+          f"{tag}: the CPHF launched no df_k_dm {rec['launches']}")
+    return {k: info["launches"][k] + rec["launches"][k]
+            for k in rec["launches"]}
+
+
+def phase_nmr_phenol(dev):
+    """14a. Phenol DF-B3LYP/6-31G* (phase 3e's SCF: grid level 2,
+    conv_tol 1e-12, orbital gradient <= 1e-8): GIAO shieldings with the
+    wall time split into 1e integrals, 2e skeleton, XC skeleton, CG (its
+    iterations per direction) and assembly, ``df_k_dm`` launches and peak
+    memory; against cctpu's oracle where there is one, else by translation
+    invariance (<= ``NMR_TOL_PPM``)."""
+    from cctpu_torch.dft.rks import RKS
+    shift = None if "card_phenol_b3lyp" in NMR_ORACLES else NMR_SHIFT_BOHR
+    n = nmr_case("card_phenol_b3lyp", RKS, PHENOL, dev, shift=shift,
+                 conv_tol_grad=1e-8, max_cycle=100)
+    check(n["df_jk_fused"] > 0, f"phenol NMR launches {n}")
+    return n
+
+
+def phase_nmr_small(dev):
+    """14b. Water DF-B3LYP, DF-CAM-B3LYP (``df_k_dm`` on B_lr too; and
+    its translation invariance), DF-M06-2X and NH2 DF-UB3LYP (the spin
+    path; ``df_j``/``df_k`` in its SCF), 6-31G*, against cctpu's oracles
+    (<= ``NMR_TOL_PPM``)."""
+    from cctpu_torch.dft.rks import RKS, UKS
+    n_all = None
+    for tag, cls, atoms, spin, xc, shift in (
+            ("card_water_b3lyp", RKS, WATER, 0, "b3lyp", None),
+            ("card_water_camb3lyp", RKS, WATER, 0, "cam-b3lyp",
+             NMR_SHIFT_BOHR),
+            ("card_water_m062x", RKS, WATER, 0, "m06-2x", None),
+            ("card_nh2_ub3lyp", UKS, NH2, 1, "b3lyp", None)):
+        n = nmr_case(tag, cls, atoms, dev, spin=spin, xc=xc, shift=shift)
+        n_all = n if n_all is None else {k: n_all[k] + n[k] for k in n}
+    check(n_all["df_j"] > 0 and n_all["df_k"] > 0,
+          f"water/NH2 NMR launches {n_all}")
+    return n_all
+
+
+def run_nmr_cli(argv, tag, memo):
+    """The ``nmr`` CLI through cli.main with the TMS memo ``memo``: (rc,
+    main's result, the phases' seconds, wall, launches, peak memory, the
+    report)."""
+    import torch
+    from cctpu_torch.workflows import calculate_nmr as cn
+    from cctpu_torch.workflows import cli, common
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rec, restore = _recording(cn, "main")
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.time()
+            rc = cli.main(["nmr", *argv, "--tms-memo", memo,
+                           "--output-dir", tmp])
+            wall = time.time() - t0
+            report = _short_report(tmp)
+    finally:
+        restore()
+    (_, _, out, _), = rec
+    return rc, out, dict(common.PHASES.phases), {
+        "phase": tag, "rc": rc, "wall_s": wall, "launches": counts(),
+        "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9}, report
+
+
+def phase_nmr_cli():
+    """14c-d. ``nmr --smiles Oc1ccccc1 --skip-opt`` at its defaults
+    (B3LYP/6-311G**, DF by size: nao 162, and the TMS reference's 170),
+    the TMS reference computed on the card into a fresh memo: rc 0, a sigma
+    and a delta for every H and C, the memo written under the port's name,
+    the wall time split into SCF, GIAO and TMS, launches, peak memory (no
+    oracle: cctpu's CPU cost is out of reach). Then ``nmr --smiles C
+    --method hf --basis sto-3g`` (in core: no J/K kernel) with its
+    optimization and its computed TMS reference: sigma, sigma_ref and
+    delta against cctpu's CLI on the same coordinates
+    (<= ``NMR_TOL_PPM``)."""
+    import json
+    n_all = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        memo = os.path.join(tmp, "cctpu_torch_tms_ref.json")
+        rc, out, ph, res, report = run_nmr_cli(
+            ["--smiles", "Oc1ccccc1", "--skip-opt"], "cli_nmr_phenol", memo)
+        with open(memo) as f:
+            disk = json.load(f)
+        syms = out["symbols"]
+        hc = [i for i, s in enumerate(syms) if s in ("H", "C")]
+        res.update(scf_s=ph.get("scf", 0.0), giao_s=ph.get("giao", 0.0),
+                   tms_s=ph.get("tms", 0.0), memo=disk,
+                   giao_phases_s=out["nmr"].timer.phases,
+                   cg_iterations=out["nmr"].stats["cg_iterations"],
+                   nao=out["mol"].nao, symbols=syms,
+                   sigma_iso=out["sigma"].tolist(),
+                   delta=out["delta"].tolist())
+        emit(res)
+        n_all = dict(res["launches"])
+        check(rc == 0 and "TMS reference computed" in report,
+              f"nmr phenol CLI: rc {rc}")
+        check(list(disk) == ["b3lyp/6-311g**"]
+              and out["ref"] == disk["b3lyp/6-311g**"],
+              f"nmr phenol CLI: the TMS memo holds {disk}")
+        check(all(np.isfinite(out["sigma"][i]) and np.isfinite(
+            out["delta"][i]) for i in hc) and len(hc) == 12,
+              "nmr phenol CLI: a sigma or delta of H/C is missing")
+        check(res["launches"]["df_jk_fused"] > 0
+              and res["launches"]["df_k_dm"] > 0,
+              f"nmr phenol CLI launches {res['launches']}")
+
+        memo = os.path.join(tmp, "cctpu_torch_tms_ref_hf.json")
+        rc, out, ph, res, report = run_nmr_cli(
+            ["--smiles", "C", "--method", "hf", "--basis", "sto-3g"],
+            "cli_nmr_methane_hf", memo)
+    orc = NMR_ORACLES["cli_methane"]
+    ref = out["ref"]
+    dev = {"sigma": float(np.abs(out["sigma"] - orc["sigma"]).max()),
+           "delta": float(np.abs(out["delta"] - orc["delta"]).max()),
+           "ref": max(abs(ref["H"] - orc["ref_H"]),
+                      abs(ref["C"] - orc["ref_C"])),
+           "opt_coords_bohr": float(np.abs(
+               out["mol"].coords - np.asarray(orc["opt_coords"])).max())}
+    res.update(sigma_iso=out["sigma"].tolist(), ref=ref,
+               delta=out["delta"].tolist(), phases_s=ph,
+               abs_vs_cctpu=dev)
+    emit(res)
+    n_all = {k: n_all[k] + res["launches"][k] for k in n_all}
+    check(rc == 0, f"nmr methane CLI: rc {rc}")
+    check(max(dev["sigma"], dev["delta"], dev["ref"]) <= NMR_TOL_PPM,
+          f"nmr methane CLI off cctpu's: {dev}")
+    return n_all
 
 
 def mark(t0, after):
@@ -3026,6 +3355,18 @@ def main():
     check(all(n_sol.values()),
           f"a kernel of the solvent path never ran in 13a-13e: {n_sol}")
 
+    n_nmr = phase_nmr_phenol(dev)
+    torch.cuda.empty_cache()
+    mark(t_start, "14a")
+    for phase, after in ((lambda: phase_nmr_small(dev), "14b"),
+                         (phase_nmr_cli, "14d")):
+        n = phase()
+        n_nmr = {k: n_nmr[k] + n[k] for k in n_nmr}
+        torch.cuda.empty_cache()
+        mark(t_start, after)
+    check(all(n_nmr.values()),
+          f"a kernel of the NMR path never ran in 14a-14d: {n_nmr}")
+
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
     cd_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -3048,6 +3389,7 @@ def main():
                        "launches_uv": n_uv[name],
                        "launches_hessian_analytic": n_h12[name],
                        "launches_solvent": n_sol[name],
+                       "launches_nmr": n_nmr[name],
                        "cholesky_shape": {k: cd_kernels[name][k]
                                           for k in cd_keys},
                        "def2tzvp_shape": {k: tzvp[name][k]
@@ -3063,6 +3405,7 @@ def main():
                  "launches_hessian": n_hess["df_k_dm"],
                  "launches_hessian_analytic": n_h12["df_k_dm"],
                  "launches_solvent": n_sol["df_k_dm"],
+                 "launches_nmr": n_nmr["df_k_dm"],
                  **{k: main_k_dm[k] for k in keys if k != "launches"},
                  **{k: main_k_dm[k] for k in ("plan", "padded_share",
                                               "tflops", "bound_share")},

@@ -95,7 +95,7 @@ def test_cli_energy_water(tmp_path):
 
 
 def test_cli_unported_paths_say_so(capsys, tmp_path):
-    assert cli.main(["nmr", "--smiles", "O"]) == 1
+    assert cli.main(["casscf", "--smiles", "O"]) == 1
     assert "not ported" in capsys.readouterr().out
     mol = TMolecule.from_atoms(WATER, basis="sto-3g")
     mf = make_scf(mol, "b3lyp", grid_level=1, device="cpu")
